@@ -1,0 +1,464 @@
+#!/usr/bin/env python3
+"""Smoke run of smoothsde_tpu_torch (the PyTorch / CUDA port) on one GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with one NVIDIA H100 (or
+another sm_90a card) and the CUDA toolkit. Phases; any failure exits
+non-zero before the final line:
+
+  1. card and build: prints the card's name and power limit
+     (nvidia-smi), compiles csrc/*.cu with nvcc (ops/_kernels.py);
+  2. kernels against their plain PyTorch versions on the card, through
+     the autograd.Function (value + gradient): two tracks with NaN rows
+     and irregular dt, d in {1, 2, 3}, n in {80, 5,000, 200,000};
+     f64 kernels vs f64 plain (value rtol 1e-10, gradient 1e-8 of the
+     largest component), f32 kernels vs f64 plain (1e-4 relative, the
+     docs/ACCURACY.md bar);
+  3. the slice at full size: a 1M-step 2-D CTCRW (dt = 0.1, tau = 3,
+     nu = 1, sigma_obs = 0.1, seed 5), simulated here with NumPy, fitted
+     by `SDE(..., device="cuda").fit()` in f32; requires convergence,
+     tau and nu within 5% of the truth, every kernel launched by the fit,
+     and the f32 nllk (1e-4 relative) and gradient (1e-4 of |nllk|: the
+     gradient vanishes at the optimum, so its f32 roundoff is measured
+     against the objective's scale, as the fit's gtol rule does) against
+     the f64 plain version on the card;
+  4. each kernel against its plain version at the fit's shapes (f64,
+     max abs error within 1e-8 of the output's scale), and times on the
+     card: each kernel and its plain version (CUDA events), nllk + grad
+     at 1M steps (host wall time per call, median and p90, kernels and
+     plain), device time per kernel and the device's busy share
+     (torch.profiler), the fit.
+
+The line before last is the card as nvidia-smi reports it, the one
+before that a JSON object {"kernels": [...]}, and the last line
+{"ok": true, "device": {...}}. It imports nothing of JAX.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+P0_POS, P0_VEL = 1.0, 10.0
+TPU_KERNEL = "smoothsde_tpu/ops/ctcrw_fused.py"
+KERNELS = [
+    # (name, source, pallas_call it replaces)
+    ("ctcrw_filter_totals", "smoothsde_tpu_torch/csrc/ctcrw_filter.cu",
+     f"{TPU_KERNEL}:731"),
+    ("block_prefix_filter", "smoothsde_tpu_torch/csrc/block_prefix.cu",
+     f"{TPU_KERNEL}:294"),
+    ("ctcrw_filter_scan", "smoothsde_tpu_torch/csrc/ctcrw_filter.cu",
+     f"{TPU_KERNEL}:842"),
+    ("ctcrw_smooth_totals", "smoothsde_tpu_torch/csrc/ctcrw_backward.cu",
+     f"{TPU_KERNEL}:1525"),
+    ("block_prefix_smooth", "smoothsde_tpu_torch/csrc/block_prefix.cu",
+     f"{TPU_KERNEL}:294"),
+    ("ctcrw_score_scan", "smoothsde_tpu_torch/csrc/ctcrw_backward.cu",
+     f"{TPU_KERNEL}:1720"),
+]
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# data
+# ---------------------------------------------------------------------------
+
+
+def two_track_data(d, n, seed):
+    """Two tracks, NaN rows, irregular dt, per-step varying parameters."""
+    rng = np.random.default_rng(seed)
+    times = np.cumsum(rng.uniform(0.05, 0.5, size=n))
+    ids = (np.arange(n) >= (2 * n) // 5).astype(int)
+    obs = np.cumsum(rng.normal(size=(n, d)) * 0.3, axis=0)
+    obs[rng.integers(1, n, size=max(2, n // 50))] = np.nan
+    par = np.column_stack([
+        0.1 * rng.normal(size=(n, d)),
+        np.log(2.0) + 0.2 * rng.normal(size=n),
+        np.log(0.8) + 0.2 * rng.normal(size=n),
+    ])
+    return obs, times, ids, par
+
+
+def config5a(n=1_000_000):
+    """The 1M-step 2-D CTCRW of the JAX package's benchmark config 5a:
+    exact simulation, velocity AR(1) by lfilter, dt = 0.1, tau = 3,
+    nu = 1, sigma_obs = 0.1, seed 5."""
+    from scipy.signal import lfilter
+
+    from smoothsde_tpu_torch.utils.misc import ctcrw_cov
+
+    rng = np.random.default_rng(5)
+    dt = 0.1
+    tau_t, nu_t, sobs = 3.0, 1.0, 0.1
+    beta = 1 / tau_t
+    sigma = 2 * nu_t / np.sqrt(np.pi * tau_t)
+    e = np.exp(-beta * dt)
+    Lc = np.linalg.cholesky(ctcrw_cov(beta, sigma, dt))
+    obs = np.empty((n, 2))
+    for d in range(2):
+        eps = rng.normal(size=(n - 1, 2)) @ Lc.T
+        v = lfilter([1.0], [1.0, -e], eps[:, 0])
+        v_prev = np.concatenate([[0.0], v[:-1]])
+        dz = v_prev / beta * (1 - e) + eps[:, 1]
+        z = np.concatenate([[0.0], np.cumsum(dz)])
+        obs[:, d] = z + rng.normal(size=n) * sobs
+    return {"ID": np.zeros(n, np.int32), "time": np.arange(n) * dt,
+            "y1": obs[:, 0], "y2": obs[:, 1]}
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+
+def loglik_value_grad(core, par, sobs, data, torch):
+    """(llk, d llk/d par, d llk/d sigma_obs) through one autograd core."""
+    p = par.detach().clone().requires_grad_(True)
+    s = sobs.detach().clone().requires_grad_(True)
+    v = core.apply(p, data.yd, s * s, data.dtv, data.resetf, data.validf,
+                   P0_POS, P0_VEL)
+    gp, gs = torch.autograd.grad(v, (p, s))
+    return float(v.detach()), gp.double().cpu().numpy(), float(gs)
+
+
+def outer_value_grad(bundle, core, data, x, torch):
+    """Joint nllk and its gradient in the outer vector x through `core`
+    (the objective's own formula: -loglik(par_matrix), h = sigma_obs^2)."""
+    xt = torch.tensor(x, dtype=bundle.dtype, device=bundle.device,
+                      requires_grad=True)
+    full = bundle.packer.unpack(xt)
+    s = torch.exp(full["log_sigma_obs"][0])
+    v = -core.apply(bundle.par_matrix(full), data.yd, s * s, data.dtv,
+                    data.resetf, data.validf, P0_POS, P0_VEL)
+    (g,) = torch.autograd.grad(v, xt)
+    return float(v.detach()), g.double().cpu().numpy()
+
+
+def cuda_ms(fn, reps, warm, torch):
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def wall_ms(fn, reps, warm):
+    """Host wall time per call: median, and the 90th percentile when at
+    least ten samples lie beyond it (else None), with the sample count."""
+    for _ in range(warm):
+        fn()
+    ts = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()  # ends in a device-to-host copy, so the work is done
+        ts.append((time.perf_counter() - t) * 1e3)
+    p90 = float(np.percentile(ts, 90)) if reps >= 100 else None
+    return {"median": float(np.median(ts)), "p90": p90, "n": reps}
+
+
+def profile_device_ms(fn, reps, torch):
+    """Device time per call of every kernel of the port (by KERNELS name)
+    and the device's busy share of the wall time, from torch.profiler
+    over `reps` calls of fn (after one warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    per_kernel = {name: 0.0 for name, _, _ in KERNELS}
+    busy_us = 0.0
+    top = []
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        busy_us += us
+        key = e.key
+        top.append((us / reps, e.count // reps, key[:90]))
+        if "block_prefix_kernel" in key:
+            name = ("block_prefix_filter" if "Elem14" in key
+                    else "block_prefix_smooth")
+        else:
+            name = next((n for n in ("filter_totals", "filter_scan",
+                                     "smooth_totals", "score_scan")
+                         if n + "_kernel" in key), None)
+            name = None if name is None else "ctcrw_" + name
+        if name is not None:
+            per_kernel[name] += us
+    for us, count, key in sorted(top, reverse=True)[:15]:
+        log(f"    {us:9.1f} us  x{count:3d}  {key}")
+    return ({k: v / 1e3 / reps for k, v in per_kernel.items()},
+            busy_us / 1e3 / reps, wall_ms / reps)
+
+
+def flat(out, torch):
+    if isinstance(out, tuple):
+        return torch.cat([o.reshape(-1) for o in out])
+    return out.reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def phase_kernels_vs_plain(torch, core_k, core_p, prepare):
+    dev = torch.device("cuda")
+    worst = {"f64_val": 0.0, "f64_grad": 0.0, "f32_val": 0.0, "f32_grad": 0.0}
+    for d in (1, 2, 3):
+        for n in (80, 5_000, 200_000):
+            obs, times, ids, par = two_track_data(d, n, seed=100 * d + n % 97)
+            res = {}
+            for tag, dtype, core in (("k64", torch.float64, core_k),
+                                     ("p64", torch.float64, core_p),
+                                     ("k32", torch.float32, core_k)):
+                data = prepare(obs, times, ids, dtype=dtype, device=dev)
+                pt = torch.tensor(par, dtype=dtype, device=dev)
+                st = torch.tensor(0.2, dtype=dtype, device=dev)
+                res[tag] = loglik_value_grad(core, pt, st, data, torch)
+            torch.cuda.synchronize()
+            v64, g64, s64 = res["p64"]
+            gscale = max(np.max(np.abs(g64)), abs(s64))
+            for tag, (tol_v, tol_g) in (("k64", (1e-10, 1e-8)),
+                                        ("k32", (1e-4, 1e-4))):
+                v, g, s = res[tag]
+                ev = abs(v - v64) / abs(v64)
+                eg = max(np.max(np.abs(g - g64)), abs(s - s64)) / gscale
+                key = "f64" if tag == "k64" else "f32"
+                worst[f"{key}_val"] = max(worst[f"{key}_val"], ev)
+                worst[f"{key}_grad"] = max(worst[f"{key}_grad"], eg)
+                check(np.isfinite(v) and np.all(np.isfinite(g)),
+                      f"{tag} d={d} n={n}: non-finite output")
+                check(ev <= tol_v, f"{tag} d={d} n={n}: value rel {ev:.3e}")
+                check(eg <= tol_g, f"{tag} d={d} n={n}: grad rel {eg:.3e}")
+            log(f"  d={d} n={n}: f64 kernels vs plain value "
+                f"{abs(res['k64'][0] - v64) / abs(v64):.2e}; f32 kernels vs "
+                f"f64 plain value {abs(res['k32'][0] - v64) / abs(v64):.2e}")
+    return worst
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is False: no GPU")
+    if not os.path.isdir(os.path.join(HERE, "smoothsde_tpu_torch")):
+        raise SmokeFailure("smoothsde_tpu_torch/ is not beside this script")
+    sys.path.insert(0, HERE)
+    import smoothsde_tpu_torch
+
+    pkg_dir = os.path.dirname(os.path.abspath(smoothsde_tpu_torch.__file__))
+    check(pkg_dir == os.path.join(HERE, "smoothsde_tpu_torch"),
+          f"imported the port from {pkg_dir}, not from this checkout")
+    from smoothsde_tpu_torch import SDE
+    from smoothsde_tpu_torch.infer.fit import make_val_grad
+    from smoothsde_tpu_torch.ops import _kernels
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+    from smoothsde_tpu_torch.ops.kalman_soa import (
+        CtcrwFusedCore,
+        CtcrwPlainCore,
+        prepare_ctcrw_data,
+    )
+
+    # the reference comparisons are in full f32 / f64, never TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = card_line()
+    log(f"[1] card: {card}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    t = time.time()
+    so = _kernels.build()
+    _kernels.load()
+    log(f"[1] kernels built in {time.time() - t:.1f} s: {so.name}")
+
+    log("[2] kernels vs plain versions through the autograd.Function")
+    worst = phase_kernels_vs_plain(torch, CtcrwFusedCore, CtcrwPlainCore,
+                                   prepare_ctcrw_data)
+    log(f"[2] worst: {json.dumps(worst)}")
+
+    log("[3] config 5a: 1M-step 2-D CTCRW fit on the card, f32")
+    t = time.time()
+    data = config5a()
+    log(f"[3] simulated in {time.time() - t:.1f} s")
+    cf.reset_launches()
+    t = time.time()
+    sde = SDE(data=data, type="CTCRW", response=["y1", "y2"],
+              par0=[0, 0, 2, 0.8], device="cuda")
+    res = sde.fit()
+    torch.cuda.synchronize()
+    fit_s = time.time() - t
+    launches = dict(cf.LAUNCHES)
+    tau_hat, nu_hat = (float(v) for v in sde.par(t=0)[0, 2:4])
+    log(f"[3] fit {fit_s:.2f} s, {res.counts['evals']} nllk+grad evals "
+        f"(BFGS {res.counts}), convergence via {res.convergence_via}, "
+        f"tau {tau_hat:.4f}, nu {nu_hat:.4f}, nllk {res.value:.3f}")
+    log(f"[3] launches during the fit: {launches}")
+    check(res.convergence == 0, f"fit did not converge: {res.message}")
+    check(abs(tau_hat - 3.0) / 3.0 < 0.05, f"tau {tau_hat} not within 5%")
+    check(abs(nu_hat - 1.0) < 0.05, f"nu {nu_hat} not within 5%")
+    for name, _, _ in KERNELS:
+        check(launches[name] > 0, f"kernel {name} never launched by the fit")
+    check(res.cov_fixed is not None and np.all(np.isfinite(res.cov_fixed)),
+          "cov_fixed not finite")
+
+    b32 = sde.bundle()
+    sde64 = SDE(data=data, type="CTCRW", response=["y1", "y2"],
+                par0=[0, 0, 2, 0.8], device="cuda", dtype=torch.float64)
+    b64 = sde64.bundle()
+    d32 = prepare_ctcrw_data(sde.obs(), data["time"], data["ID"],
+                             dtype=torch.float32, device=dev)
+    d64 = prepare_ctcrw_data(sde.obs(), data["time"], data["ID"],
+                             dtype=torch.float64, device=dev)
+    accuracy = {}
+    for label, x in (("optimum", res.par), ("start", b32.packer.outer_init())):
+        v32, g32 = make_val_grad(b32)(x)  # the fit's own evaluation
+        v64, g64 = outer_value_grad(b64, CtcrwPlainCore, d64, x, torch)
+        ev = abs(v32 - v64) / abs(v64)
+        eg_scale = float(np.max(np.abs(g32 - g64)) / abs(v64))
+        eg_comp = float(np.max(np.abs(g32 - g64) / np.maximum(
+            np.abs(g64), 1e-300)))
+        accuracy[label] = {"nllk_rel": ev, "grad_err_over_nllk": eg_scale,
+                           "grad_rel_per_component": eg_comp}
+        log(f"[3] f32 kernels vs f64 plain at the {label}: nllk {v32:.6f} "
+            f"vs {v64:.6f} (rel {ev:.2e}); grad {g32} vs {g64}")
+        check(ev <= 1e-4, f"f32 nllk at the {label}: rel {ev:.3e}")
+        check(eg_scale <= 1e-4, f"f32 gradient at the {label}: {eg_scale:.3e}")
+    log(f"[3] accuracy: {json.dumps(accuracy)}")
+
+    log("[4] kernels vs plain at the fit's shapes, and times")
+    ops_k, ops_p = cf.OPS["kernels"], cf.OPS["plain"]
+    x_hat = res.par
+    entries = {}
+    for dtype, dat, bun in ((torch.float64, d64, b64),
+                            (torch.float32, d32, b32)):
+        with torch.no_grad():
+            xt = torch.tensor(x_hat, dtype=dtype, device=dev)
+            full = bun.packer.unpack(xt)
+            pm = bun.par_matrix(full)
+            h1 = (torch.exp(full["log_sigma_obs"][0]) ** 2).reshape(1)
+            p = cf.plan(2, pm.shape[0])
+            stack, bd = cf.par_stack_from_data(pm, dat.yd, dat.dtv,
+                                               dat.resetf, dat.validf, p)
+            tot = ops_k.filter_totals(stack, bd, h1, P0_POS, P0_VEL)
+            pre = ops_k.block_prefix(tot, 2, "filter", False)
+            mom, _ = ops_k.filter_scan(stack, bd, pre, h1, P0_POS, P0_VEL)
+            stot = ops_k.smooth_totals(stack, mom)
+            suf = ops_k.block_prefix(stot, 2, "smooth", True)
+            calls = {
+                "ctcrw_filter_totals": lambda o: o.filter_totals(
+                    stack, bd, h1, P0_POS, P0_VEL),
+                "block_prefix_filter": lambda o: o.block_prefix(
+                    tot, 2, "filter", False),
+                "ctcrw_filter_scan": lambda o: o.filter_scan(
+                    stack, bd, pre, h1, P0_POS, P0_VEL),
+                "ctcrw_smooth_totals": lambda o: o.smooth_totals(stack, mom),
+                "block_prefix_smooth": lambda o: o.block_prefix(
+                    stot, 2, "smooth", True),
+                "ctcrw_score_scan": lambda o: o.score_scan(
+                    stack, mom, suf, h1, P0_POS),
+            }
+            for name, source, replaces in KERNELS:
+                fn = calls[name]
+                got, ref = flat(fn(ops_k), torch), flat(fn(ops_p), torch)
+                err = float((got - ref).abs().max())
+                scale = max(1.0, float(ref.abs().max()))
+                e = entries.setdefault(name, {
+                    "name": name, "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": launches[name],
+                })
+                check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+                if dtype == torch.float64:
+                    e["max_abs_err"] = err
+                    e["max_rel_err"] = err / scale
+                    check(err <= 1e-8 * scale,
+                          f"{name}: f64 kernel vs plain max abs err {err:.3e}")
+                else:
+                    e["max_abs_err_f32"] = err
+                    e["ms"] = cuda_ms(lambda: fn(ops_k), 50, 3, torch)
+                    e["plain_ms"] = cuda_ms(lambda: fn(ops_p), 3, 1, torch)
+                    e["shape"] = f"n=1000000 d=2 lanes={p.lanes} L={p.L} f32"
+    kernels = [entries[name] for name, _, _ in KERNELS]
+    for e in kernels:
+        log(f"  {e['name']}: {e['ms']:.4f} ms (plain {e['plain_ms']:.2f} ms),"
+            f" f64 max abs err {e['max_abs_err']:.2e}")
+
+    dev_ms, busy_ms, prof_wall_ms = profile_device_ms(
+        lambda: outer_value_grad(b32, CtcrwFusedCore, d32, x_hat, torch), 10,
+        torch)
+    for e in kernels:
+        e["device_ms"] = dev_ms[e["name"]]
+    log(f"[4] profiler, per nllk+grad: device busy {busy_ms:.3f} ms of "
+        f"{prof_wall_ms:.3f} ms wall; per kernel {json.dumps(dev_ms)}")
+    vg_k = wall_ms(
+        lambda: outer_value_grad(b32, CtcrwFusedCore, d32, x_hat, torch),
+        110, 5)
+    vg_p = wall_ms(
+        lambda: outer_value_grad(b32, CtcrwPlainCore, d32, x_hat, torch), 5, 1)
+    fit_line = {
+        "card": card,
+        "nllk_grad_1M_ms": {"kernels": vg_k, "plain": vg_p},
+        "profile_per_nllk_grad_ms": {"device_busy": busy_ms,
+                                     "wall": prof_wall_ms},
+        "fit": {"wall_s": fit_s, "evals": res.counts["evals"],
+                "bfgs": res.counts, "via": res.convergence_via,
+                "tau": tau_hat, "nu": nu_hat, "nllk": res.value},
+        "accuracy_f32_vs_f64": accuracy,
+        "kernel_checks": worst,
+    }
+    log(f"[4] nllk+grad at 1M steps, f32, wall ms: kernels {vg_k}, "
+        f"plain {vg_p}")
+    log("SUMMARY " + json.dumps(fit_line))
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    try:
+        main()
+    except SmokeFailure as err:
+        print(f"chip_smoke: FAILED: {err}", file=sys.stderr, flush=True)
+        sys.exit(1)

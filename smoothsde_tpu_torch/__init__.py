@@ -1,0 +1,32 @@
+"""smoothsde-tpu on PyTorch and CUDA: the H100 port of smoothsde_tpu.
+
+A second package beside the JAX reference `smoothsde_tpu`, with the same
+module layout (ops/, models/, formula/, infer/, api/, utils/). It imports
+torch and never jax. The CTCRW state-space fit runs end to end through
+`SDE(...).fit()`; its filter, cross-block prefix and Fisher-score
+backward are hand-written CUDA kernels for Hopper (csrc/), each with a
+plain PyTorch version that the CPU tests run. The device is explicit:
+`SDE(..., device="cuda")` by default, `device="cpu"` for the plain
+versions.
+"""
+
+__version__ = "0.1.0"
+
+# The API surface is loaded lazily (PEP 562) so the ops can be imported
+# without the formula and fitting layers.
+_LAZY = {
+    "SDE": ("smoothsde_tpu_torch.api.sde", "SDE"),
+}
+
+__all__ = list(_LAZY)
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        module, attr = _LAZY[name]
+        return getattr(importlib.import_module(module), attr)
+    raise AttributeError(
+        f"module 'smoothsde_tpu_torch' has no attribute '{name}'"
+    )

@@ -1,0 +1,728 @@
+"""Fused CTCRW filter and Fisher-identity backward: host side, plain
+versions, and the wrappers of the CUDA kernels.
+
+Port of smoothsde_tpu/ops/ctcrw_fused.py (par-space path). The time
+axis is cut into `NB` contiguous blocks per response dim; lane
+`dd * NB + b` owns block b of dim dd, i.e. the global steps
+b*L .. b*L + L - 1. Every per-step input lives in ONE stacked tensor
+`(L, 10, lanes)`, time-major within blocks, so the thread that owns a
+lane reads neighbouring addresses with its warp at every step. Rows:
+
+    0 lt   log tau        (slot i = par of the transition LEAVING i)
+    1 ln   log nu
+    2 dtv  interval i -> i+1 (host f64-derived)
+    3 mu   drift target of this lane's dim
+    4 te   track end
+    5 tvn  transition i -> i+1 has a density
+    6 y    observation (NaN -> 0)
+    7 upd  measurement update at i
+    8 rst  track start at i
+    9 live 1 on real slots, 0 on padding
+
+The same stack serves the forward and the backward (the forward feeds
+each step the PREVIOUS slot's par, carried across steps and seeded per
+lane from the boundary rows `bd`; the backward feeds each slot its own).
+
+The five kernels, each with its plain PyTorch version here:
+
+  filter_totals  (K1a)  block totals of the 14-comp filtering elements
+  block_prefix   (K2)   exclusive cross-block prefix (suffix if reverse)
+  filter_scan    (K1b)  prefix-seeded rescan: moments + llk partials
+  smooth_totals  (K3a)  block totals of the 9-comp smoothing elements
+  score_scan     (K3b)  suffix-seeded rescan: Fisher score cotangents
+
+A wrapper runs its plain version only for a tensor that lies on the
+CPU; for a CUDA tensor it launches its kernel (csrc/, built by
+ops/_kernels.py) or raises. Each wrapper counts its launches in
+`LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple
+
+import torch
+
+from smoothsde_tpu_torch.ops.kalman_smooth import _ID_S2, Smooth2, _combine2_rev
+from smoothsde_tpu_torch.ops.kalman_soa import _ID2, Element2, _combine2
+from smoothsde_tpu_torch.ops.stable import em1, phi, psi
+
+# Steps per lane the geometry aims for. At 1M steps and d = 2 this gives
+# NB = 31,250 blocks, L = 32 and 62,500 lanes (one thread each, ~470 per
+# SM of the H100's 132): a short serial chain per thread, while the
+# cross-block prefix (K2) stays one launch per direction. Fewer steps
+# per lane would fill the card better but lengthen K2's chain.
+STEPS_PER_LANE = 32
+
+_PAR_ROWS = 10
+_N_BD = 5  # boundary rows: prev lt, ln, dt, mu, rst per lane
+_N_TOT = 14  # filtering element: A(4) b(2) C(3) eta(2) J(3)
+_N_SM = 9  # smoothing element: E(4) g(2) L(3)
+_N_MOM = 5  # filtered moments: m0, m1, P00, P01, P11
+_N_COT = 4  # cotangents: mu, log tau, log nu, y
+
+
+class Plan(NamedTuple):
+    """Block geometry shared by the forward and the backward."""
+
+    d: int
+    n: int
+    NB: int  # blocks per response dim
+    L: int  # steps per block (lane)
+    lanes: int  # d * NB
+
+
+def plan(d: int, n: int) -> Plan:
+    NB = max(1, -(-n // STEPS_PER_LANE))
+    L = -(-n // NB)
+    return Plan(d=d, n=n, NB=NB, L=L, lanes=d * NB)
+
+
+# ---------------------------------------------------------------------------
+# Layout
+# ---------------------------------------------------------------------------
+
+
+def _to_lanes(x, p: Plan):
+    """(k, d, n) -> (L, k, lanes), zero-padded past n."""
+    k = x.shape[0]
+    pad = p.NB * p.L - p.n
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    x = x.reshape(k, p.d, p.NB, p.L).permute(3, 0, 1, 2)
+    return x.reshape(p.L, k, p.lanes).contiguous()
+
+
+def unstack(x, p: Plan):
+    """Inverse of the stack layout for kernel outputs:
+    (L, k, lanes) -> (k, d, n)."""
+    k = x.shape[1]
+    x = x.reshape(p.L, k, p.d, p.NB).permute(1, 2, 3, 0)
+    return x.reshape(k, p.d, p.NB * p.L)[:, :, : p.n]
+
+
+def build_par_stack(mu, lt, ln, dtv, te, tvn, yd, upd, rst, p: Plan):
+    """The shared par-space stack (L, 10, lanes) and the per-lane
+    boundary rows bd (5, lanes): the PREVIOUS slot's (lt, ln, dt, mu,
+    rst) for each lane's first step (step b*L - 1, the last step of the
+    lane before). Lane 0 of each dim is masked by rst = 1 (the first
+    step's entering transition is the identity). mu and yd are (d, n);
+    the other rows (n,)."""
+    d, n = p.d, p.n
+    rows = [lt, ln, dtv, mu, te, tvn, yd, upd, rst, torch.ones_like(lt)]
+    stack = _to_lanes(torch.stack([r.expand(d, n) for r in rows]), p)
+    start = torch.arange(p.NB, device=lt.device) * p.L
+    bidx = (start - 1).clamp(0, n - 1)
+    rst_b = torch.where(start == 0, 1.0, rst[bidx]).to(lt.dtype)
+    bd = torch.stack([
+        lt[bidx].expand(d, p.NB), ln[bidx].expand(d, p.NB),
+        dtv[bidx].expand(d, p.NB), mu[:, bidx], rst_b.expand(d, p.NB),
+    ]).reshape(_N_BD, p.lanes).contiguous()
+    return stack, bd
+
+
+def par_stack_from_data(par_mat, yd, dtv, resetf, validf, p: Plan):
+    """The stack from the likelihood boundary arguments: derives the
+    track-end / has-density / update masks from the resets, as the JAX
+    package's `_fused_par_core` does (kalman_soa.py:562-573)."""
+    d = p.d
+    one = resetf.new_ones(1)
+    prevf = torch.cat([one, resetf[:-1]])
+    updf = validf * (1.0 - resetf)  # validity from the first column only
+    te = torch.cat([resetf[1:], one])
+    tv = (1.0 - resetf) * (1.0 - prevf)
+    tvn = torch.cat([tv[1:], resetf.new_zeros(1)])
+    return build_par_stack(
+        par_mat[:, :d].T, par_mat[:, d], par_mat[:, d + 1], dtv, te, tvn,
+        yd, updf, resetf, p,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Element math (mirrored by csrc/ctcrw_common.cuh)
+# ---------------------------------------------------------------------------
+
+
+def _elem_from_vals(f01, f11, q00, q01, q11, c0, c1, y, R, U,
+                    p0_pos, p0_vel, h):
+    """Filtering element from the entering transition (F rows (1, f01),
+    (0, f11); Q; drift c) and the observation: a branch-free three-way
+    select between reset, update and propagate-only (0/1 masks R, U)."""
+    S = q00 + h
+    inv_s = 1.0 / S
+    K0 = q00 * inv_s
+    K1 = q01 * inv_s
+    r = y - c0
+
+    uA00 = 1.0 - K0
+    uA01 = (1.0 - K0) * f01
+    uA10 = -K1
+    uA11 = f11 - K1 * f01
+    ub0 = c0 + K0 * r
+    ub1 = c1 + K1 * r
+    uC00 = (1.0 - K0) * q00
+    uC01 = (1.0 - K0) * q01
+    uC11 = q11 - K1 * q01
+    ue0 = r * inv_s
+    ue1 = f01 * r * inv_s
+    uJ00 = inv_s
+    uJ01 = f01 * inv_s
+    uJ11 = f01 * f01 * inv_s
+
+    prop = (1.0 - R) * (1.0 - U)
+    updm = (1.0 - R) * U
+    A00 = updm * uA00 + prop * 1.0
+    A01 = updm * uA01 + prop * f01
+    A10 = updm * uA10
+    A11 = updm * uA11 + prop * f11
+    b0 = R * y + updm * ub0 + prop * c0
+    b1 = updm * ub1 + prop * c1
+    C00 = R * p0_pos + updm * uC00 + prop * q00
+    C01 = updm * uC01 + prop * q01
+    C11 = R * p0_vel + updm * uC11 + prop * q11
+    return Element2(
+        A=((A00, A01), (A10, A11)),
+        b=(b0, b1),
+        C=((C00, C01), (C01, C11)),
+        eta=(updm * ue0, updm * ue1),
+        J=((updm * uJ00, updm * uJ01), (updm * uJ01, updm * uJ11)),
+    )
+
+
+def _pack_elem(e: Element2):
+    return [
+        e.A[0][0], e.A[0][1], e.A[1][0], e.A[1][1],
+        e.b[0], e.b[1],
+        e.C[0][0], e.C[0][1], e.C[1][1],
+        e.eta[0], e.eta[1],
+        e.J[0][0], e.J[0][1], e.J[1][1],
+    ]
+
+
+def _unpack_elem_full(v) -> Element2:
+    return Element2(
+        A=((v[0], v[1]), (v[2], v[3])),
+        b=(v[4], v[5]),
+        C=((v[6], v[7]), (v[7], v[8])),
+        eta=(v[9], v[10]),
+        J=((v[11], v[12]), (v[12], v[13])),
+    )
+
+
+_ID_VALS = _pack_elem(_ID2)
+
+
+def _pack_sm(e: Smooth2):
+    return [
+        e.E[0][0], e.E[0][1], e.E[1][0], e.E[1][1],
+        e.g[0], e.g[1],
+        e.L[0][0], e.L[0][1], e.L[1][1],
+    ]
+
+
+def _unpack_sm(v) -> Smooth2:
+    return Smooth2(
+        E=((v[0], v[1]), (v[2], v[3])),
+        g=(v[4], v[5]),
+        L=((v[6], v[7]), (v[7], v[8])),
+    )
+
+
+_ID_SM = _pack_sm(_ID_S2)
+
+
+def _par_terms_vals(lt, ln, dtv, m, R):
+    """Transition pieces from raw par values, identity-masked where
+    R = 1. Padding slots (lt = ln = dtv = m = 0) evaluate to the
+    identity element with no extra masking (u = 0 -> e1 = 1, em1 = 0,
+    phi = psi = 0). Uses the expm1-based em1/psi/phi, as the CUDA
+    kernels do."""
+    tau = torch.exp(lt)
+    beta = 1.0 / tau
+    nu = torch.exp(ln)
+    sigma2 = 4.0 * nu * nu / (math.pi * tau)
+    u = beta * dtv
+    e1 = torch.exp(-u)
+    m1 = em1(u)
+    psi_u = psi(u)
+    phi_u = phi(u)
+    g = m1 / beta
+    s3 = sigma2 / (beta * beta * beta)
+    s2 = sigma2 / (2.0 * beta * beta)
+    s1 = sigma2 / (2.0 * beta)
+    q00 = s3 * phi_u
+    q01 = s2 * (m1 * m1)
+    q11 = s1 * (m1 * (1.0 + e1))
+    bp = psi_u / beta
+    bv = m1
+    nR = 1.0 - R
+    return dict(
+        f01=nR * g, f11=R + nR * e1,
+        q00=nR * q00, q01=nR * q01, q11=nR * q11,
+        c0=nR * bp * m, c1=nR * bv * m,
+        # unmasked intermediates for the chain rule (tvn masks the
+        # score, and tvn = 0 wherever R = 1)
+        u=u, e1=e1, m1=m1, g=g, bp=bp, bv=bv, dtv=dtv, m=m,
+        s1=s1, s2=s2, s3=s3, uq00=q00, uq01=q01, uq11=q11,
+    )
+
+
+def _smooth_elem_vals(f01, f11, q00, q01, q11, c0, c1,
+                      m0, m1, P00, P01, P11, TE):
+    """RTS smoothing element at a step from its filtered moments and
+    its LEAVING transition; absorbing (smoothed = filtered) at track
+    ends TE. Returns (Smooth2, G) with G the unmasked RTS gain."""
+    Pp00 = P00 + 2.0 * f01 * P01 + f01 * f01 * P11 + q00
+    Pp01 = f11 * (P01 + f01 * P11) + q01
+    Pp11 = f11 * f11 * P11 + q11
+    det = Pp00 * Pp11 - Pp01 * Pp01
+    i00 = Pp11 / det
+    i01 = -Pp01 / det
+    i11 = Pp00 / det
+    PF00 = P00 + f01 * P01
+    PF01 = f11 * P01
+    PF10 = P01 + f01 * P11
+    PF11 = f11 * P11
+    G00 = PF00 * i00 + PF01 * i01
+    G01 = PF00 * i01 + PF01 * i11
+    G10 = PF10 * i00 + PF11 * i01
+    G11 = PF10 * i01 + PF11 * i11
+    u0 = m0 + f01 * m1 + c0
+    u1 = f11 * m1 + c1
+    g0 = m0 - (G00 * u0 + G01 * u1)
+    g1 = m1 - (G10 * u0 + G11 * u1)
+    GP00 = G00 * Pp00 + G01 * Pp01
+    GP01 = G00 * Pp01 + G01 * Pp11
+    GP10 = G10 * Pp00 + G11 * Pp01
+    GP11 = G10 * Pp01 + G11 * Pp11
+    L00 = P00 - (GP00 * G00 + GP01 * G01)
+    L01 = P01 - (GP00 * G10 + GP01 * G11)
+    L11 = P11 - (GP10 * G10 + GP11 * G11)
+
+    nTE = 1.0 - TE
+    elem = Smooth2(
+        E=((nTE * G00, nTE * G01), (nTE * G10, nTE * G11)),
+        g=(TE * m0 + nTE * g0, TE * m1 + nTE * g1),
+        L=(
+            (TE * P00 + nTE * L00, TE * P01 + nTE * L01),
+            (TE * P01 + nTE * L01, TE * P11 + nTE * L11),
+        ),
+    )
+    return elem, (G00, G01, G10, G11)
+
+
+def _step_elem(rows, pv, h, p0_pos, p0_vel):
+    """(element, transition terms, new prev-par) for one step given its
+    stack rows and the previous slot's par pv = (lt, ln, dt, mu, rst)."""
+    lt, ln, dtv, mu, _te, _tvn, y, upd, rst, live = rows
+    # transition entering l = transition leaving l-1; identity when l-1
+    # was a reset OR l is padding (the prev carry would otherwise drag
+    # the last real transition into the pads)
+    Rm = 1.0 - live * (1.0 - pv[4])
+    w = _par_terms_vals(pv[0], pv[1], pv[2], pv[3], Rm)
+    e = _elem_from_vals(
+        w["f01"], w["f11"], w["q00"], w["q01"], w["q11"],
+        w["c0"], w["c1"], y, rst, upd, p0_pos, p0_vel, h,
+    )
+    return e, w, (lt, ln, dtv, mu, rst)
+
+
+def _identity(vals, like):
+    return [torch.full_like(like, v) for v in vals]
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions of the five kernels (vectorized over lanes,
+# a Python loop over the L steps of a block)
+# ---------------------------------------------------------------------------
+
+
+def filter_totals_plain(stack, bd, h, p0_pos, p0_vel):
+    """K1a: (14, lanes) composition of each lane's filtering elements."""
+    c = _unpack_elem_full(_identity(_ID_VALS, bd[0]))
+    pv = tuple(bd.unbind(0))
+    for l in range(stack.shape[0]):
+        e, _, pv = _step_elem(stack[l].unbind(0), pv, h[0], p0_pos, p0_vel)
+        c = _combine2(c, e)
+    return torch.stack(_pack_elem(c))
+
+
+def filter_scan_plain(stack, bd, prefix, h, p0_pos, p0_vel):
+    """K1b: rescan seeded with each lane's exclusive prefix. Returns the
+    filtered moments (L, 5, lanes) and per-lane llk partials (lanes,)."""
+    L = stack.shape[0]
+    c = _unpack_elem_full(prefix.unbind(0))
+    pv = tuple(bd.unbind(0))
+    hs = h[0]
+    acc = torch.zeros_like(bd[0])
+    moments = []
+    for l in range(L):
+        rows = stack[l].unbind(0)
+        e, w, pv = _step_elem(rows, pv, hs, p0_pos, p0_vel)
+        # predictive llk term BEFORE absorbing step l
+        a_pred = c.b[0] + w["f01"] * c.b[1] + w["c0"]
+        Pp00 = (
+            c.C[0][0] + 2.0 * w["f01"] * c.C[0][1]
+            + w["f01"] * w["f01"] * c.C[1][1] + w["q00"]
+        )
+        F = Pp00 + hs
+        u = rows[6] - a_pred
+        acc = acc + rows[7] * (-0.5) * (torch.log(F) + u * u / F)
+        c = _combine2(c, e)
+        moments.append(torch.stack(
+            [c.b[0], c.b[1], c.C[0][0], c.C[0][1], c.C[1][1]]
+        ))
+    return torch.stack(moments), acc
+
+
+class _ElemKind(NamedTuple):
+    combine: Callable
+    pack: Callable
+    unpack: Callable
+    id_vals: list
+
+
+ELEMS = {
+    "filter": _ElemKind(_combine2, _pack_elem, _unpack_elem_full, _ID_VALS),
+    "smooth": _ElemKind(_combine2_rev, _pack_sm, _unpack_sm, _ID_SM),
+}
+
+
+def block_prefix_plain(totals, d, elem, reverse):
+    """K2: exclusive prefix (suffix if reverse) of the per-block totals
+    (C, lanes) along the blocks of each response dim, with identity
+    fill. Hillis-Steele over the NB blocks; `combine(a, b)` always has
+    `a` first in scan order (for the reverse smoother combine,
+    `_combine2_rev(acc, new)`, acc is the LATER segment in time)."""
+    k_ = ELEMS[elem]
+    C, lanes = totals.shape
+    NB = lanes // d
+    x = totals.reshape(C, d, NB)
+    if reverse:
+        x = x.flip(-1)
+    ident = torch.tensor(k_.id_vals, dtype=x.dtype, device=x.device)
+
+    def fill(k):
+        return ident.view(C, 1, 1).expand(C, d, k)
+
+    k = 1
+    while k < NB:
+        sh = torch.cat([fill(k), x[..., :-k]], dim=-1)
+        x = torch.stack(k_.pack(k_.combine(
+            k_.unpack(sh.unbind(0)), k_.unpack(x.unbind(0))
+        )))
+        k *= 2
+    ex = torch.cat([fill(1), x[..., :-1]], dim=-1)
+    if reverse:
+        ex = ex.flip(-1)
+    return ex.reshape(C, lanes).contiguous()
+
+
+def smooth_totals_plain(stack, moments):
+    """K3a: (9, lanes) reverse composition of each lane's smoothing
+    elements."""
+    acc = _unpack_sm(_identity(_ID_SM, stack[0, 0]))
+    for l in reversed(range(stack.shape[0])):
+        lt, ln, dtv, mu, te = stack[l, :5].unbind(0)
+        w = _par_terms_vals(lt, ln, dtv, mu, stack[l, 8])
+        m0, m1, P00, P01, P11 = moments[l].unbind(0)
+        e, _ = _smooth_elem_vals(
+            w["f01"], w["f11"], w["q00"], w["q01"], w["q11"],
+            w["c0"], w["c1"], m0, m1, P00, P01, P11, te,
+        )
+        acc = _combine2_rev(acc, e)
+    return torch.stack(_pack_sm(acc))
+
+
+def score_scan_plain(stack, moments, suffix, h, p0_pos):
+    """K3b: rescan in reverse time seeded with each lane's exclusive
+    suffix, emitting the Fisher-identity score contracted to (mu,
+    log tau, log nu, y) per step, (L, 4, lanes), and the per-lane h
+    score partials (lanes,). The gbar scaling is applied outside."""
+    L = stack.shape[0]
+    hs = h[0]
+    acc = _unpack_sm(suffix.unbind(0))
+    ha = torch.zeros_like(stack[0, 0])
+    cots = [None] * L
+    for l in reversed(range(L)):
+        lt, ln, dtv, mu, te, TVn, y, U, R = stack[l, :9].unbind(0)
+        # smoothed at i+1 is the incoming accumulator
+        ms1_0, ms1_1 = acc.g
+        Ps1_00, Ps1_01 = acc.L[0]
+        Ps1_11 = acc.L[1][1]
+        w = _par_terms_vals(lt, ln, dtv, mu, R)
+        m0, m1f, P00, P01, P11 = moments[l].unbind(0)
+        e, G = _smooth_elem_vals(
+            w["f01"], w["f11"], w["q00"], w["q01"], w["q11"],
+            w["c0"], w["c1"], m0, m1f, P00, P01, P11, te,
+        )
+        acc = _combine2_rev(acc, e)
+        ms0, ms1 = acc.g  # smoothed at i
+        Ps00, Ps01 = acc.L[0]
+        Ps11 = acc.L[1][1]
+
+        f01, f11, c0, c1 = w["f01"], w["f11"], w["c0"], w["c1"]
+        # sanitized Qn inverse
+        q00 = TVn * w["q00"] + (1.0 - TVn)
+        q01 = TVn * w["q01"]
+        q11 = TVn * w["q11"] + (1.0 - TVn)
+        det = q00 * q11 - q01 * q01
+        qi00 = q11 / det
+        qi01 = -q01 / det
+        qi11 = q00 / det
+
+        # lag-one Cov(x_{i+1}, x_i | y) = P_s_{i+1} G'
+        C00 = Ps1_00 * G[0] + Ps1_01 * G[1]
+        C01 = Ps1_00 * G[2] + Ps1_01 * G[3]
+        C10 = Ps1_01 * G[0] + Ps1_11 * G[1]
+        C11 = Ps1_01 * G[2] + Ps1_11 * G[3]
+        Exx01 = Ps01 + ms0 * ms1
+        Exx11 = Ps11 + ms1 * ms1
+        Ex2x01 = C01 + ms1_0 * ms1
+        Ex2x11 = C11 + ms1_1 * ms1
+        # r = m_{i+1} - Fn m_i - cn ; Fn rows (1, f01), (0, f11)
+        r0 = ms1_0 - (ms0 + f01 * ms1) - c0
+        r1 = ms1_1 - f11 * ms1 - c1
+
+        # Fbar = Qinv (Ex2x1 - Fn Exx - cn m_i'), second column
+        T01 = Ex2x01 - (Exx01 + f01 * Exx11) - c0 * ms1
+        T11 = Ex2x11 - f11 * Exx11 - c1 * ms1
+        Fb01 = qi00 * T01 + qi01 * T11
+        Fb11 = qi01 * T01 + qi11 * T11
+        # cbar = Qinv r
+        cb0 = qi00 * r0 + qi01 * r1
+        cb1 = qi01 * r0 + qi11 * r1
+        # E[r r'] = P_{i+1} + Fn P_i Fn' - C Fn' - Fn C' + r r'
+        FP00 = Ps00 + 2.0 * f01 * Ps01 + f01 * f01 * Ps11
+        FP01 = f11 * (Ps01 + f01 * Ps11)
+        FP11 = f11 * f11 * Ps11
+        CF00 = C00 + f01 * C01
+        CF01 = f11 * C01
+        CF10 = C10 + f01 * C11
+        CF11 = f11 * C11
+        E00 = Ps1_00 + FP00 - 2.0 * CF00 + r0 * r0
+        E01 = Ps1_01 + FP01 - CF01 - CF10 + r0 * r1
+        E11 = Ps1_11 + FP11 - 2.0 * CF11 + r1 * r1
+        # Qbar = 0.5 (Qinv Errt Qinv - Qinv)
+        A00 = qi00 * E00 + qi01 * E01
+        A01 = qi00 * E01 + qi01 * E11
+        A10 = qi01 * E00 + qi11 * E01
+        A11 = qi01 * E01 + qi11 * E11
+        Qb00 = 0.5 * ((A00 * qi00 + A01 * qi01) - qi00)
+        Qb01 = 0.5 * ((A00 * qi01 + A01 * qi11) - qi01)
+        Qb11 = 0.5 * ((A10 * qi01 + A11 * qi11) - qi11)
+
+        # ---- par -> (F, Q, c) chain rule, all closed-form ----
+        u, e1, m1 = w["u"], w["e1"], w["m1"]
+        ue1 = u * e1
+        # d/d(log tau): g = tau*em1, e1' = u e1; q terms carry the tau
+        # powers of sigma2/beta^k; phi' = em1^2, psi' = em1
+        dg = w["g"] - w["dtv"] * e1
+        dq00 = 2.0 * w["uq00"] - w["s3"] * u * m1 * m1
+        dq01 = w["uq01"] - 2.0 * w["s2"] * m1 * ue1
+        dq11 = -2.0 * w["s1"] * ue1 * e1
+        dbp = w["bp"] - w["dtv"] * m1
+        # q01 feeds BOTH off-diagonal Q entries in the primal -> 2x
+        ltb = (Fb01 * dg + Fb11 * ue1
+               + Qb00 * dq00 + 2.0 * Qb01 * dq01 + Qb11 * dq11
+               + (cb0 * dbp - cb1 * ue1) * w["m"])
+        # all Q entries scale as nu^2
+        lnb = 2.0 * (Qb00 * w["uq00"] + 2.0 * Qb01 * w["uq01"]
+                     + Qb11 * w["uq11"])
+        mub = cb0 * w["bp"] + cb1 * w["bv"]
+
+        # obs + prior score at i
+        resid = y - ms0
+        yb = U * (-resid / hs) + R * (-resid / p0_pos)
+        Ey2 = resid * resid + Ps00
+        ha = ha + U * (0.5 * Ey2 / (hs * hs) - 0.5 / hs)
+        cots[l] = torch.stack([TVn * mub, TVn * ltb, TVn * lnb, yb])
+    return torch.stack(cots), ha
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: plain version for CPU tensors, CUDA kernel for CUDA tensors
+# ---------------------------------------------------------------------------
+
+# Launch counts per kernel; the wrappers add one where they launch.
+LAUNCHES = {
+    "ctcrw_filter_totals": 0,
+    "block_prefix_filter": 0,
+    "ctcrw_filter_scan": 0,
+    "ctcrw_smooth_totals": 0,
+    "block_prefix_smooth": 0,
+    "ctcrw_score_scan": 0,
+}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _on_cuda(*ts) -> bool:
+    """True for CUDA tensors, False for CPU tensors; raises on anything
+    else or on mixed devices/dtypes."""
+    dev, dt = ts[0].device, ts[0].dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"kernel inputs must be float32/float64, got {dt}")
+    for t in ts:
+        if t.device != dev or t.dtype != dt:
+            raise ValueError(
+                "kernel inputs must share one device and dtype; got "
+                f"{[(x.device, x.dtype) for x in ts]}"
+            )
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return True
+
+
+def _check_stack(stack, bd=None, moments=None, rows_min=_PAR_ROWS):
+    L, rows, lanes = stack.shape
+    if rows < rows_min:
+        raise ValueError(f"stack has {rows} rows, needs {rows_min}")
+    if bd is not None and tuple(bd.shape) != (_N_BD, lanes):
+        raise ValueError(f"bd shape {tuple(bd.shape)} != {(_N_BD, lanes)}")
+    if moments is not None and tuple(moments.shape) != (L, _N_MOM, lanes):
+        raise ValueError(
+            f"moments shape {tuple(moments.shape)} != {(L, _N_MOM, lanes)}"
+        )
+    return L, lanes
+
+
+def filter_totals(stack, bd, h, p0_pos, p0_vel):
+    """K1a wrapper; see filter_totals_plain."""
+    if not _on_cuda(stack, bd, h):
+        return filter_totals_plain(stack, bd, h, p0_pos, p0_vel)
+    from smoothsde_tpu_torch.ops import _kernels
+
+    L, lanes = _check_stack(stack, bd)
+    totals = torch.empty((_N_TOT, lanes), dtype=stack.dtype,
+                         device=stack.device)
+    _kernels.launch("ctcrw_filter_totals", stack, bd, h, float(p0_pos),
+                    float(p0_vel), totals, L, lanes)
+    LAUNCHES["ctcrw_filter_totals"] += 1
+    return totals
+
+
+def filter_scan(stack, bd, prefix, h, p0_pos, p0_vel):
+    """K1b wrapper; see filter_scan_plain."""
+    if not _on_cuda(stack, bd, prefix, h):
+        return filter_scan_plain(stack, bd, prefix, h, p0_pos, p0_vel)
+    from smoothsde_tpu_torch.ops import _kernels
+
+    L, lanes = _check_stack(stack, bd)
+    if tuple(prefix.shape) != (_N_TOT, lanes):
+        raise ValueError(f"prefix shape {tuple(prefix.shape)}")
+    moments = torch.empty((L, _N_MOM, lanes), dtype=stack.dtype,
+                          device=stack.device)
+    llk = torch.empty((lanes,), dtype=stack.dtype, device=stack.device)
+    _kernels.launch("ctcrw_filter_scan", stack, bd, prefix, h,
+                    float(p0_pos), float(p0_vel), moments, llk, L, lanes)
+    LAUNCHES["ctcrw_filter_scan"] += 1
+    return moments, llk
+
+
+def block_prefix(totals, d, elem, reverse):
+    """K2 wrapper; see block_prefix_plain. elem: "filter" (14-comp,
+    `_combine2`) or "smooth" (9-comp, `_combine2_rev`)."""
+    if not _on_cuda(totals):
+        return block_prefix_plain(totals, d, elem, reverse)
+    from smoothsde_tpu_torch.ops import _kernels
+
+    C, lanes = totals.shape
+    if C != len(ELEMS[elem].id_vals) or lanes % d:
+        raise ValueError(f"totals shape {tuple(totals.shape)} for {elem}")
+    out = torch.empty_like(totals)
+    name = f"block_prefix_{elem}"
+    _kernels.launch(name, totals, out, d, lanes // d, int(bool(reverse)))
+    LAUNCHES[name] += 1
+    return out
+
+
+def smooth_totals(stack, moments):
+    """K3a wrapper; see smooth_totals_plain."""
+    if not _on_cuda(stack, moments):
+        return smooth_totals_plain(stack, moments)
+    from smoothsde_tpu_torch.ops import _kernels
+
+    L, lanes = _check_stack(stack, moments=moments, rows_min=9)
+    totals = torch.empty((_N_SM, lanes), dtype=stack.dtype,
+                         device=stack.device)
+    _kernels.launch("ctcrw_smooth_totals", stack, moments, totals,
+                    stack.shape[1], L, lanes)
+    LAUNCHES["ctcrw_smooth_totals"] += 1
+    return totals
+
+
+def score_scan(stack, moments, suffix, h, p0_pos):
+    """K3b wrapper; see score_scan_plain."""
+    if not _on_cuda(stack, moments, suffix, h):
+        return score_scan_plain(stack, moments, suffix, h, p0_pos)
+    from smoothsde_tpu_torch.ops import _kernels
+
+    L, lanes = _check_stack(stack, moments=moments, rows_min=9)
+    if tuple(suffix.shape) != (_N_SM, lanes):
+        raise ValueError(f"suffix shape {tuple(suffix.shape)}")
+    cot = torch.empty((L, _N_COT, lanes), dtype=stack.dtype,
+                      device=stack.device)
+    hbar = torch.empty((lanes,), dtype=stack.dtype, device=stack.device)
+    _kernels.launch("ctcrw_score_scan", stack, moments, suffix, h,
+                    float(p0_pos), cot, hbar, stack.shape[1], L, lanes)
+    LAUNCHES["ctcrw_score_scan"] += 1
+    return cot, hbar
+
+
+class KernelOps(NamedTuple):
+    filter_totals: Callable
+    block_prefix: Callable
+    filter_scan: Callable
+    smooth_totals: Callable
+    score_scan: Callable
+
+
+OPS = {
+    "kernels": KernelOps(filter_totals, block_prefix, filter_scan,
+                         smooth_totals, score_scan),
+    "plain": KernelOps(filter_totals_plain, block_prefix_plain,
+                       filter_scan_plain, smooth_totals_plain,
+                       score_scan_plain),
+}
+
+
+# ---------------------------------------------------------------------------
+# Forward filter and backward score over the shared stack
+# ---------------------------------------------------------------------------
+
+
+def fused_filter_par(stack, bd, h, p: Plan, p0_pos, p0_vel,
+                     ops: KernelOps = OPS["kernels"]):
+    """Forward filter: (llk, filtered moments (L, 5, lanes)). h is a
+    1-element tensor on the stack's device."""
+    totals = ops.filter_totals(stack, bd, h, p0_pos, p0_vel)
+    prefix = ops.block_prefix(totals, p.d, "filter", False)
+    moments, llk_lanes = ops.filter_scan(stack, bd, prefix, h, p0_pos,
+                                         p0_vel)
+    return llk_lanes.sum(), moments
+
+
+def fused_backward_par(stack, moments, h, gbar, p: Plan, p0_pos,
+                       ops: KernelOps = OPS["kernels"]):
+    """Backward: the Fisher-identity score scaled by gbar, as
+    (mubar (d, n), ltbar (n,), lnbar (n,), ybar (d, n), hbar 0-d)."""
+    totals = ops.smooth_totals(stack, moments)
+    suffix = ops.block_prefix(totals, p.d, "smooth", True)
+    cot, hbar_lanes = ops.score_scan(stack, moments, suffix, h, p0_pos)
+    c_mu, c_lt, c_ln, c_y = unstack(cot, p)
+    return (
+        gbar * c_mu,
+        gbar * c_lt.sum(0),
+        gbar * c_ln.sum(0),
+        gbar * c_y,
+        gbar * hbar_lanes.sum(),
+    )

@@ -1,0 +1,333 @@
+"""Structure-of-arrays (SoA) CTCRW Kalman filter on tensors.
+
+Port of smoothsde_tpu/ops/kalman_soa.py for the CTCRW slice:
+
+  - the 2x2 tuple algebra and the filtering element `Element2` with its
+    associative combine `_combine2` (every matrix component is its own
+    tensor over the step/lane axis, so a combine is elementwise);
+  - `precompute_dt`, the host-side f64 inter-observation intervals;
+  - `ctcrw_loglik_soa`, the CTCRW log-likelihood whose value comes from
+    the fused forward kernels and whose gradient comes from the fused
+    Fisher-identity backward kernels (ops/ctcrw_fused.py), wrapped as
+    `CtcrwFusedCore`, a torch.autograd.Function at the same
+    (par_mat, yd, h, dtv, resetf, validf) boundary as the JAX
+    package's `_fused_par_core`;
+  - `ctcrw_loglik_sequential`, a plain step-by-step filter
+    differentiated by autograd, an independent oracle for the tests.
+
+Model conventions (state = (position, velocity) per response dim,
+observation y = position + N(0, h), prior N((y_s, 0), diag(p0_pos,
+p0_vel)) at each track start, identity transition out of a reset)
+follow the reference's nllk_ctcrw.hpp:195-247.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+# ---- 2x2 tuple algebra (components are tensors, elementwise ops) ----
+
+
+def _m2(X, Y):
+    return (
+        (
+            X[0][0] * Y[0][0] + X[0][1] * Y[1][0],
+            X[0][0] * Y[0][1] + X[0][1] * Y[1][1],
+        ),
+        (
+            X[1][0] * Y[0][0] + X[1][1] * Y[1][0],
+            X[1][0] * Y[0][1] + X[1][1] * Y[1][1],
+        ),
+    )
+
+
+def _mv(X, v):
+    return (
+        X[0][0] * v[0] + X[0][1] * v[1],
+        X[1][0] * v[0] + X[1][1] * v[1],
+    )
+
+
+def _t2(X):
+    return ((X[0][0], X[1][0]), (X[0][1], X[1][1]))
+
+
+def _madd(X, Y):
+    return (
+        (X[0][0] + Y[0][0], X[0][1] + Y[0][1]),
+        (X[1][0] + Y[1][0], X[1][1] + Y[1][1]),
+    )
+
+
+def _vadd(u, v):
+    return (u[0] + v[0], u[1] + v[1])
+
+
+def _vsub(u, v):
+    return (u[0] - v[0], u[1] - v[1])
+
+
+def _inv2(X):
+    det = X[0][0] * X[1][1] - X[0][1] * X[1][0]
+    return (
+        (X[1][1] / det, -X[0][1] / det),
+        (-X[1][0] / det, X[0][0] / det),
+    )
+
+
+def _symm(X):
+    off = 0.5 * (X[0][1] + X[1][0])
+    return ((X[0][0], off), (off, X[1][1]))
+
+
+class Element2(NamedTuple):
+    """SoA filtering element for state dim 2."""
+
+    A: tuple
+    b: tuple
+    C: tuple
+    eta: tuple
+    J: tuple
+
+
+def _combine2(e1: Element2, e2: Element2) -> Element2:
+    """Associative filtering combine: e1 covers the earlier steps."""
+    CJ = _m2(e1.C, e2.J)
+    G = ((1.0 + CJ[0][0], CJ[0][1]), (CJ[1][0], 1.0 + CJ[1][1]))
+    M = _inv2(G)
+    A2M = _m2(e2.A, M)
+    A = _m2(A2M, e1.A)
+    b = _vadd(_mv(A2M, _vadd(e1.b, _mv(e1.C, e2.eta))), e2.b)
+    C = _symm(_madd(_m2(_m2(A2M, e1.C), _t2(e2.A)), e2.C))
+    Nt = _t2(M)
+    A1tN = _m2(_t2(e1.A), Nt)
+    eta = _vadd(_mv(A1tN, _vsub(e2.eta, _mv(e2.J, e1.b))), e1.eta)
+    J = _symm(_madd(_m2(_m2(A1tN, e2.J), e1.A), e1.J))
+    return Element2(A, b, C, eta, J)
+
+
+_ID2 = Element2(
+    A=((1.0, 0.0), (0.0, 1.0)),
+    b=(0.0, 0.0),
+    C=((0.0, 0.0), (0.0, 0.0)),
+    eta=(0.0, 0.0),
+    J=((0.0, 0.0), (0.0, 0.0)),
+)
+
+
+def precompute_dt(times, ids):
+    """Host-side f64 inter-observation intervals with cross-track
+    sanitization (dt = 1 across ID breaks and at the dummy last slot).
+
+    Absolute times encoded in f32 quantize the diffs, so the intervals
+    are computed in f64 BEFORE any device cast."""
+    t = np.asarray(times, np.float64)
+    i = np.asarray(ids)
+    same = i[1:] == i[:-1]
+    dt = np.where(same, np.diff(t), 1.0)
+    return np.concatenate([dt, np.ones(1)])
+
+
+class CtcrwData(NamedTuple):
+    """Per-step data at the likelihood boundary, on the working device
+    and in the working dtype: yd (d, n) observations with NaN -> 0,
+    dtv (n,) intervals, resetf/validf (n,) 0/1 masks (track start;
+    finite first response column)."""
+
+    yd: torch.Tensor
+    dtv: torch.Tensor
+    resetf: torch.Tensor
+    validf: torch.Tensor
+
+
+def prepare_ctcrw_data(obs, times, ids, *, dtype, device):
+    """Build CtcrwData host-side (NumPy, f64) and move it once."""
+    obs = np.asarray(obs, np.float64)
+    ids = np.asarray(ids)
+    dt = precompute_dt(times, ids)
+    reset = np.concatenate([[True], ids[1:] != ids[:-1]])
+    valid = np.isfinite(obs[:, 0])
+
+    def dev(x):
+        return torch.as_tensor(np.ascontiguousarray(x, np.float64)).to(
+            device=device, dtype=dtype
+        )
+
+    return CtcrwData(
+        yd=dev(np.nan_to_num(obs, nan=0.0).T),
+        dtv=dev(dt),
+        resetf=dev(reset),
+        validf=dev(valid),
+    )
+
+
+def _make_core(ops_name: str):
+    """autograd.Function over the fused forward/backward, built on the
+    op table `ops_name` of ops/ctcrw_fused.py: "kernels" (the wrappers,
+    which launch the CUDA kernels for CUDA tensors) or "plain" (the
+    plain PyTorch versions, for comparing the two on the card)."""
+
+    class _Core(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, par_mat, yd, h, dtv, resetf, validf, p0_pos,
+                    p0_vel):
+            from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+
+            ops = cf.OPS[ops_name]
+            d, n = yd.shape
+            plan = cf.plan(d, n)
+            h1 = h.reshape(1).contiguous()
+            stack, bd = cf.par_stack_from_data(
+                par_mat, yd, dtv, resetf, validf, plan
+            )
+            llk, moments = cf.fused_filter_par(
+                stack, bd, h1, plan, p0_pos, p0_vel, ops
+            )
+            ctx.save_for_backward(stack, moments, h1)
+            ctx.plan = plan
+            ctx.p0_pos = p0_pos
+            ctx.h_shape = h.shape
+            return llk
+
+        @staticmethod
+        def backward(ctx, gbar):
+            from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+
+            stack, moments, h1 = ctx.saved_tensors
+            plan = ctx.plan
+            mubar, ltbar, lnbar, ybar, hbar = cf.fused_backward_par(
+                stack, moments, h1, gbar, plan, ctx.p0_pos,
+                cf.OPS[ops_name],
+            )
+            par_bar = torch.cat(
+                [mubar.T, ltbar[:, None], lnbar[:, None]], dim=1
+            )
+            # dt and the masks are data, not parameters: no cotangents
+            return (par_bar, ybar, hbar.reshape(ctx.h_shape), None, None,
+                    None, None, None)
+
+    _Core.__name__ = _Core.__qualname__ = (
+        "CtcrwFusedCore" if ops_name == "kernels" else "CtcrwPlainCore"
+    )
+    return _Core
+
+
+# Kernel-backed CTCRW log-likelihood: forward = fused filter, backward =
+# fused smoother + Fisher-identity score. Arguments (par_mat (n, d+2),
+# yd (d, n), h 0-d, dtv (n,), resetf (n,), validf (n,), p0_pos, p0_vel).
+CtcrwFusedCore = _make_core("kernels")
+# The same computation through the plain PyTorch versions only.
+CtcrwPlainCore = _make_core("plain")
+
+
+def ctcrw_loglik_soa(par_mat, obs, times, ids, sigma_obs, p0_pos=1.0,
+                     p0_vel=10.0, data: CtcrwData = None):
+    """Total CTCRW log-likelihood through the fused kernels.
+
+    par_mat: (n, d+2) working scale (mu_1..mu_d, log tau, log nu) on the
+    working device; obs: (n, d) with NaN missing rows (first-response
+    check, as in the reference); sigma_obs: scalar measurement SD (a
+    tensor to differentiate through it). Pass `data` (prepare_ctcrw_data)
+    to skip rebuilding the per-step data; obs/times/ids are then unused.
+    Differentiable in par_mat and sigma_obs (reverse mode)."""
+    if data is None:
+        data = prepare_ctcrw_data(
+            obs, times, ids, dtype=par_mat.dtype, device=par_mat.device
+        )
+    sigma_obs = torch.as_tensor(
+        sigma_obs, dtype=par_mat.dtype, device=par_mat.device
+    )
+    h = sigma_obs * sigma_obs
+    return CtcrwFusedCore.apply(
+        par_mat, data.yd, h, data.dtv, data.resetf, data.validf,
+        float(p0_pos), float(p0_vel),
+    )
+
+
+def ctcrw_loglik_sequential(par_mat, obs, times, ids, sigma_obs,
+                            p0_pos=1.0, p0_vel=10.0):
+    """Plain step-by-step CTCRW filter, differentiated by autograd.
+
+    Builds the per-step filtering elements as the JAX package's
+    `_ctcrw_system` does and composes them one step at a time (a Python
+    loop over the n steps), then recovers the predictive likelihood
+    from the filtered moments. O(n) Python steps: for tests at small n.
+    """
+    from smoothsde_tpu_torch.ops.stable import ctcrw_transition_terms
+
+    dtype, device = par_mat.dtype, par_mat.device
+    data = prepare_ctcrw_data(obs, times, ids, dtype=dtype, device=device)
+    yd = data.yd  # (d, n)
+    d, n = yd.shape
+    reset = data.resetf > 0.5
+    update = (data.validf > 0.5) & ~reset
+    prev_reset = torch.cat([reset.new_ones(1), reset[:-1]])
+
+    mu = par_mat[:, :d].T  # (d, n)
+    tau = torch.exp(par_mat[:, d])
+    nu = torch.exp(par_mat[:, d + 1])
+    beta = 1.0 / tau
+    sigma2 = 4.0 * nu * nu / (math.pi * tau)
+    tt = ctcrw_transition_terms(beta, sigma2, data.dtv)
+    h = torch.as_tensor(sigma_obs, dtype=dtype, device=device) ** 2
+
+    def shift(x, fill=0.0):
+        pad = torch.full(x.shape[:-1] + (1,), fill, dtype=dtype,
+                         device=device)
+        return torch.cat([pad, x[..., :-1]], dim=-1)
+
+    zero = torch.zeros_like(yd)
+    np_ = prev_reset  # identity transition out of a reset
+    f01 = torch.where(np_, 0.0, shift(tt["g"]))
+    f11 = torch.where(np_, 1.0, shift(tt["e1"], 1.0))
+    q00 = torch.where(np_, 0.0, shift(tt["q00"]))
+    q01 = torch.where(np_, 0.0, shift(tt["q01"]))
+    q11 = torch.where(np_, 0.0, shift(tt["q11"]))
+    c0 = torch.where(np_, 0.0, shift(tt["bp"][None, :] * mu))
+    c1 = torch.where(np_, 0.0, shift(tt["bv"][None, :] * mu))
+
+    from smoothsde_tpu_torch.ops.ctcrw_fused import (
+        _ID_VALS,
+        _elem_from_vals,
+        _pack_elem,
+        _unpack_elem_full,
+    )
+
+    e = _elem_from_vals(
+        f01 + zero, f11 + zero, q00 + zero, q01 + zero, q11 + zero,
+        c0, c1, yd, data.resetf + zero, (update.to(dtype)) + zero,
+        p0_pos, p0_vel, h,
+    )
+    flat = _pack_elem(e)
+    carry = _unpack_elem_full(
+        [torch.full((d,), v, dtype=dtype, device=device) for v in _ID_VALS]
+    )
+    m0s, m1s, P00s, P01s, P11s = [], [], [], [], []
+    for i in range(n):
+        carry = _combine2(carry, _unpack_elem_full([c[:, i] for c in flat]))
+        m0s.append(carry.b[0])
+        m1s.append(carry.b[1])
+        P00s.append(carry.C[0][0])
+        P01s.append(carry.C[0][1])
+        P11s.append(carry.C[1][1])
+    m0, m1, P00, P01, P11 = (
+        torch.stack(x, dim=-1) for x in (m0s, m1s, P00s, P01s, P11s)
+    )
+
+    # predictive likelihood from the filtered moments at i - 1
+    m0p, m1p = shift(m0), shift(m1)
+    P00p, P01p, P11p = shift(P00), shift(P01), shift(P11)
+    a_pred0 = m0p + f01 * m1p + c0
+    Pp00 = P00p + 2.0 * f01 * P01p + f01 * f01 * P11p + q00
+    a_pred0 = torch.where(reset, yd, a_pred0)
+    Pp00 = torch.where(reset, p0_pos, Pp00)
+    F = Pp00 + h
+    u = yd - a_pred0
+    terms = torch.where(update, -0.5 * (torch.log(F) + u * u / F), 0.0)
+    return terms.sum()
+

@@ -1,0 +1,48 @@
+"""Import guard for the PyTorch port: no module of smoothsde_tpu_torch
+imports jax or the JAX package, and none imports triton or a compiled
+extension at module level (those load inside the function that launches
+a kernel, so the CPU tests can import every module)."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+PKG = Path(__file__).resolve().parents[1] / "smoothsde_tpu_torch"
+FILES = sorted(PKG.rglob("*.py"))
+# modules that may only be imported inside functions
+LAZY_ONLY = ("triton", "ctypes", "torch.utils.cpp_extension",
+             "smoothsde_tpu_torch.ops._kernels")
+
+
+def _imports(tree):
+    """(module name, is_module_level) for every import in the tree."""
+    top = set(map(id, tree.body))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = "." * node.level + (node.module or "")
+            names = [base] + [f"{base}.{a.name}" for a in node.names]
+        else:
+            continue
+        for name in names:
+            yield name, id(node) in top
+
+
+def test_package_has_modules():
+    assert len(FILES) > 10
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(PKG)))
+def test_no_jax_and_lazy_extensions(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for name, top in _imports(tree):
+        root = name.split(".")[0]
+        assert root not in ("jax", "jaxlib"), f"{path}: imports {name}"
+        assert root != "smoothsde_tpu", f"{path}: imports {name}"
+        if top and path.name != "_kernels.py":
+            for lazy in LAZY_ONLY:
+                assert not (name == lazy or name.startswith(lazy + ".")), (
+                    f"{path}: module-level import of {name}"
+                )
