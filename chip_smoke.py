@@ -15,20 +15,28 @@ non-zero before the final line:
      f64 kernels vs f64 plain (value rtol 1e-10, gradient 1e-8 of the
      largest component), f32 kernels vs f64 plain (1e-4 relative, the
      docs/ACCURACY.md bar);
-  3. the slice at full size: a 1M-step 2-D CTCRW (dt = 0.1, tau = 3,
-     nu = 1, sigma_obs = 0.1, seed 5), simulated here with NumPy, fitted
-     by `SDE(..., device="cuda").fit()` in f32; requires convergence,
-     tau and nu within 5% of the truth, every kernel launched by the fit,
-     and the f32 nllk (1e-4 relative) and gradient (1e-4 of |nllk|: the
-     gradient vanishes at the optimum, so its f32 roundoff is measured
-     against the objective's scale, as the fit's gtol rule does) against
-     the f64 plain version on the card;
-  4. each kernel against its plain version at the fit's shapes (f64,
-     max abs error within 1e-8 of the output's scale), and times on the
+     The same checks for the scalar-state BM_SSM and OU_SSM kernels
+     through DiagFusedCore / DiagPlainCore;
+  3. the CTCRW slice at full size: a 1M-step 2-D CTCRW (dt = 0.1,
+     tau = 3, nu = 1, sigma_obs = 0.1, seed 5), simulated here with
+     NumPy, fitted by `SDE(..., device="cuda").fit()` in f32; requires
+     convergence, tau and nu within 5% of the truth, every CTCRW kernel
+     launched by the fit, and the f32 nllk (1e-4 relative) and gradient
+     (1e-4 of |nllk|: the gradient vanishes at the optimum, so its f32
+     roundoff is measured against the objective's scale, as the fit's
+     gtol rule does) against the f64 plain version on the card;
+     3b. a 1M-step 2-D OU_SSM (dt = 0.1, mu = (1, -0.5), tau = 2,
+     kappa = 1, sigma_obs = 0.1, seed 8) and 3c. a 1M-step 1-D BM_SSM
+     (dt ~ U(0.4, 0.6), mu = 0.05, sigma = 0.3, sigma_obs = 0.1, seed 9),
+     each fitted in f32 with the same gates (tau, kappa, sigma within 5%,
+     each mu within 0.05 absolute, every diag kernel launched);
+  4. each kernel against its plain version at its fit's shapes (the
+     diag kernels at both the OU_SSM and the BM_SSM fit's; f64, max abs
+     error within 1e-8 of the output's scale), and times on the
      card: each kernel and its plain version (CUDA events), nllk + grad
      at 1M steps (host wall time per call, median and p90, kernels and
      plain), device time per kernel and the device's busy share
-     (torch.profiler), the fit.
+     (torch.profiler), the fits. Each fit counts its launches from zero.
 
 The line before last is the card as nvidia-smi reports it, the one
 before that a JSON object {"kernels": [...]}, and the last line
@@ -46,7 +54,8 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 P0_POS, P0_VEL = 1.0, 10.0
 TPU_KERNEL = "smoothsde_tpu/ops/ctcrw_fused.py"
-KERNELS = [
+DIAG_TPU_KERNEL = "smoothsde_tpu/ops/diag_fused.py"
+CTCRW_KERNELS = [
     # (name, source, pallas_call it replaces)
     ("ctcrw_filter_totals", "smoothsde_tpu_torch/csrc/ctcrw_filter.cu",
      f"{TPU_KERNEL}:731"),
@@ -61,6 +70,22 @@ KERNELS = [
     ("ctcrw_score_scan", "smoothsde_tpu_torch/csrc/ctcrw_backward.cu",
      f"{TPU_KERNEL}:1720"),
 ]
+DIAG_KERNELS = [
+    ("diag_filter_totals", "smoothsde_tpu_torch/csrc/diag_filter.cu",
+     f"{DIAG_TPU_KERNEL}:283"),
+    ("block_prefix_diag_filter", "smoothsde_tpu_torch/csrc/block_prefix.cu",
+     f"{TPU_KERNEL}:294"),
+    ("diag_filter_scan", "smoothsde_tpu_torch/csrc/diag_filter.cu",
+     f"{DIAG_TPU_KERNEL}:369"),
+    ("diag_smooth_totals", "smoothsde_tpu_torch/csrc/diag_backward.cu",
+     f"{DIAG_TPU_KERNEL}:481"),
+    ("block_prefix_diag_smooth", "smoothsde_tpu_torch/csrc/block_prefix.cu",
+     f"{TPU_KERNEL}:294"),
+    ("diag_score_scan", "smoothsde_tpu_torch/csrc/diag_backward.cu",
+     f"{DIAG_TPU_KERNEL}:588"),
+]
+KERNELS = CTCRW_KERNELS + DIAG_KERNELS
+P0_DIAG = 10.0
 
 
 class SmokeFailure(Exception):
@@ -132,6 +157,41 @@ def config5a(n=1_000_000):
             "y1": obs[:, 0], "y2": obs[:, 1]}
 
 
+def ou_ssm_1m(n=1_000_000):
+    """1M-step 2-D OU_SSM at the widths of the JAX package's own OU_SSM
+    case (tests/test_dist.py): exact AR(1) simulation by lfilter from the
+    stationary law, dt = 0.1, mu = (1, -0.5), tau = 2, kappa = 1,
+    sigma_obs = 0.1, seed 8."""
+    from scipy.signal import lfilter
+
+    rng = np.random.default_rng(8)
+    dt, tau, kappa, sobs = 0.1, 2.0, 1.0, 0.1
+    decay = np.exp(-dt / tau)
+    obs = np.empty((n, 2))
+    for d, mu in enumerate((1.0, -0.5)):
+        eps = rng.normal(size=n) * np.sqrt(kappa * (1.0 - decay**2))
+        eps[0] = rng.normal() * np.sqrt(kappa)
+        z = lfilter([1.0], [1.0, -decay], eps)
+        obs[:, d] = mu + z + rng.normal(size=n) * sobs
+    return {"ID": np.zeros(n, np.int32), "time": np.arange(n) * dt,
+            "y1": obs[:, 0], "y2": obs[:, 1]}
+
+
+def bm_ssm_1m(n=1_000_000):
+    """1M-step 1-D BM_SSM in the shape of the JAX package's diag kernel
+    check (tools/tpu_sharded_kernel_check.py: dt ~ U(0.4, 0.6),
+    sigma_obs = 0.1), simulated with a known truth by exact Gaussian
+    increments: mu = 0.05, sigma = 0.3, seed 9."""
+    rng = np.random.default_rng(9)
+    mu, sigma, sobs = 0.05, 0.3, 0.1
+    dt = rng.uniform(0.4, 0.6, size=n - 1)
+    x = np.concatenate([[0.0], np.cumsum(
+        mu * dt + sigma * np.sqrt(dt) * rng.normal(size=n - 1))])
+    return {"ID": np.zeros(n, np.int32),
+            "time": np.concatenate([[0.0], np.cumsum(dt)]),
+            "y": x + rng.normal(size=n) * sobs}
+
+
 # ---------------------------------------------------------------------------
 # helpers
 # ---------------------------------------------------------------------------
@@ -145,6 +205,33 @@ def loglik_value_grad(core, par, sobs, data, torch):
                    P0_POS, P0_VEL)
     gp, gs = torch.autograd.grad(v, (p, s))
     return float(v.detach()), gp.double().cpu().numpy(), float(gs)
+
+
+def diag_value_grad(typ, core, par, sobs, data, torch):
+    """loglik_value_grad for the scalar-state models (BM_SSM / OU_SSM)."""
+    from smoothsde_tpu_torch.ops.diag_fused import diag_fused_loglik, diag_system
+
+    p = par.detach().clone().requires_grad_(True)
+    s = sobs.detach().clone().requires_grad_(True)
+    v = diag_fused_loglik(diag_system(typ, p, None, None, None, s, data=data),
+                          core)
+    gp, gs = torch.autograd.grad(v, (p, s))
+    return float(v.detach()), gp.double().cpu().numpy(), float(gs)
+
+
+def diag_outer_value_grad(typ, bundle, core, data, x, torch):
+    """outer_value_grad for the scalar-state models."""
+    from smoothsde_tpu_torch.ops.diag_fused import diag_fused_loglik, diag_system
+
+    xt = torch.tensor(x, dtype=bundle.dtype, device=bundle.device,
+                      requires_grad=True)
+    full = bundle.packer.unpack(xt)
+    s = torch.exp(full["log_sigma_obs"][0])
+    v = -diag_fused_loglik(
+        diag_system(typ, bundle.par_matrix(full), None, None, None, s,
+                    data=data), core)
+    (g,) = torch.autograd.grad(v, xt)
+    return float(v.detach()), g.double().cpu().numpy()
 
 
 def outer_value_grad(bundle, core, data, x, torch):
@@ -188,6 +275,26 @@ def wall_ms(fn, reps, warm):
     return {"median": float(np.median(ts)), "p90": p90, "n": reps}
 
 
+def kernel_of(key):
+    """KERNELS name of a profiler kernel key: K2 by its element type (the
+    template argument), the per-lane kernels by name, diag first (the
+    CTCRW names are substrings of the diag ones)."""
+    if "block_prefix_kernel" in key:
+        for elem, name in (("Elem14", "block_prefix_filter"),
+                           ("Smooth9", "block_prefix_smooth"),
+                           ("Elem5", "block_prefix_diag_filter"),
+                           ("Smooth3", "block_prefix_diag_smooth")):
+            if elem in key:
+                return name
+        return None
+    for n in ("filter_totals", "filter_scan", "smooth_totals", "score_scan"):
+        if f"diag_{n}_kernel" in key:
+            return f"diag_{n}"
+        if f"{n}_kernel" in key:
+            return f"ctcrw_{n}"
+    return None
+
+
 def profile_device_ms(fn, reps, torch):
     """Device time per call of every kernel of the port (by KERNELS name)
     and the device's busy share of the wall time, from torch.profiler
@@ -215,14 +322,7 @@ def profile_device_ms(fn, reps, torch):
         busy_us += us
         key = e.key
         top.append((us / reps, e.count // reps, key[:90]))
-        if "block_prefix_kernel" in key:
-            name = ("block_prefix_filter" if "Elem14" in key
-                    else "block_prefix_smooth")
-        else:
-            name = next((n for n in ("filter_totals", "filter_scan",
-                                     "smooth_totals", "score_scan")
-                         if n + "_kernel" in key), None)
-            name = None if name is None else "ctcrw_" + name
+        name = kernel_of(key)
         if name is not None:
             per_kernel[name] += us
     for us, count, key in sorted(top, reverse=True)[:15]:
@@ -242,12 +342,17 @@ def flat(out, torch):
 # ---------------------------------------------------------------------------
 
 
-def phase_kernels_vs_plain(torch, core_k, core_p, prepare):
+def phase_kernels_vs_plain(torch, core_k, core_p, prepare,
+                           value_grad=loglik_value_grad, n_extra=2):
+    """value_grad(core, par, sobs, data, torch) -> (llk, dpar, dsobs);
+    n_extra: the model's parameters beyond the d mus (2 for CTCRW and
+    OU_SSM: the two log-scale columns; 1 for BM_SSM: the first)."""
     dev = torch.device("cuda")
     worst = {"f64_val": 0.0, "f64_grad": 0.0, "f32_val": 0.0, "f32_grad": 0.0}
     for d in (1, 2, 3):
         for n in (80, 5_000, 200_000):
             obs, times, ids, par = two_track_data(d, n, seed=100 * d + n % 97)
+            par = par[:, :d + n_extra]
             res = {}
             for tag, dtype, core in (("k64", torch.float64, core_k),
                                      ("p64", torch.float64, core_p),
@@ -255,7 +360,7 @@ def phase_kernels_vs_plain(torch, core_k, core_p, prepare):
                 data = prepare(obs, times, ids, dtype=dtype, device=dev)
                 pt = torch.tensor(par, dtype=dtype, device=dev)
                 st = torch.tensor(0.2, dtype=dtype, device=dev)
-                res[tag] = loglik_value_grad(core, pt, st, data, torch)
+                res[tag] = value_grad(core, pt, st, data, torch)
             torch.cuda.synchronize()
             v64, g64, s64 = res["p64"]
             gscale = max(np.max(np.abs(g64)), abs(s64))
@@ -277,6 +382,167 @@ def phase_kernels_vs_plain(torch, core_k, core_p, prepare):
     return worst
 
 
+def diag_fit(torch, label, typ, data, response, par0, truth):
+    """Phases 3b / 3c: fit a 1M-step scalar-state model on the card in f32
+    with launch counts from zero; gates as in phase 3, truth given per
+    parameter on the response scale (mus within 0.05 absolute, the rest
+    within 5%). Returns what phase 4 needs."""
+    from smoothsde_tpu_torch import SDE
+    from smoothsde_tpu_torch.infer.fit import make_val_grad
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+    from smoothsde_tpu_torch.ops.diag_fused import DiagPlainCore, prepare_diag_data
+
+    dev = torch.device("cuda")
+    cf.reset_launches()
+    t = time.time()
+    sde = SDE(data=data, type=typ, response=response, par0=par0,
+              device="cuda")
+    res = sde.fit()
+    torch.cuda.synchronize()
+    fit_s = time.time() - t
+    launches = dict(cf.LAUNCHES)
+    est = dict(zip(truth, (float(v) for v in sde.par(t=0)[0])))
+    log(f"[{label}] {typ} fit {fit_s:.2f} s, {res.counts['evals']} nllk+grad "
+        f"evals (BFGS {res.counts}), convergence via {res.convergence_via}, "
+        f"estimates {json.dumps(est)}, nllk {res.value:.3f}")
+    log(f"[{label}] launches during the fit: {launches}")
+    check(res.convergence == 0, f"{typ} fit did not converge: {res.message}")
+    for name, want in truth.items():
+        got = est[name]
+        if name.startswith("mu"):
+            check(abs(got - want) <= 0.05, f"{typ} {name} {got} vs {want}")
+        else:
+            check(abs(got - want) / want < 0.05,
+                  f"{typ} {name} {got} not within 5% of {want}")
+    for name, _, _ in DIAG_KERNELS:
+        check(launches[name] > 0, f"kernel {name} never launched by the fit")
+    check(res.cov_fixed is not None and np.all(np.isfinite(res.cov_fixed)),
+          f"{typ} cov_fixed not finite")
+
+    b32 = sde.bundle()
+    b64 = SDE(data=data, type=typ, response=response, par0=par0,
+              device="cuda", dtype=torch.float64).bundle()
+    d32, d64 = (prepare_diag_data(typ, sde.obs(), data["time"], data["ID"],
+                                  dtype=dt, device=dev)
+                for dt in (torch.float32, torch.float64))
+    accuracy = {}
+    for where, x in (("optimum", res.par), ("start", b32.packer.outer_init())):
+        v32, g32 = make_val_grad(b32)(x)  # the fit's own evaluation
+        v64, g64 = diag_outer_value_grad(typ, b64, DiagPlainCore, d64, x,
+                                         torch)
+        ev = abs(v32 - v64) / abs(v64)
+        eg_scale = float(np.max(np.abs(g32 - g64)) / abs(v64))
+        eg_comp = float(np.max(np.abs(g32 - g64) / np.maximum(
+            np.abs(g64), 1e-300)))
+        accuracy[where] = {"nllk_rel": ev, "grad_err_over_nllk": eg_scale,
+                           "grad_rel_per_component": eg_comp}
+        log(f"[{label}] f32 kernels vs f64 plain at the {where}: nllk "
+            f"{v32:.6f} vs {v64:.6f} (rel {ev:.2e}); grad {g32} vs {g64}")
+        check(ev <= 1e-4, f"{typ} f32 nllk at the {where}: rel {ev:.3e}")
+        check(eg_scale <= 1e-4,
+              f"{typ} f32 gradient at the {where}: {eg_scale:.3e}")
+    log(f"[{label}] accuracy: {json.dumps(accuracy)}")
+    return {"typ": typ, "res": res, "launches": launches, "b32": b32,
+            "b64": b64, "d32": d32, "d64": d64, "d": len(response),
+            "summary": {"wall_s": fit_s, "evals": res.counts["evals"],
+                        "bfgs": res.counts, "via": res.convergence_via,
+                        "estimates": est, "truth": truth, "nllk": res.value,
+                        "accuracy_f32_vs_f64": accuracy}}
+
+
+def diag_kernel_checks(torch, fit):
+    """Phase 4 for the scalar-state kernels at a diag fit's shapes: each
+    kernel against its plain version (f64, max abs error within 1e-8 of
+    the output's scale) and its time and its plain version's (f32, CUDA
+    events). Returns {kernel name: measurements}."""
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+    from smoothsde_tpu_torch.ops import diag_fused as df
+
+    dev = torch.device("cuda")
+    ops_k, ops_p = df.OPS["kernels"], df.OPS["plain"]
+    d, typ = fit["d"], fit["typ"]
+    out = {name: {} for name, _, _ in DIAG_KERNELS}
+    for dtype, dat, bun in ((torch.float64, fit["d64"], fit["b64"]),
+                            (torch.float32, fit["d32"], fit["b32"])):
+        with torch.no_grad():
+            xt = torch.tensor(fit["res"].par, dtype=dtype, device=dev)
+            full = bun.packer.unpack(xt)
+            sysd = df.diag_system(typ, bun.par_matrix(full), None, None, None,
+                                  torch.exp(full["log_sigma_obs"][0]),
+                                  data=dat)
+            h1 = sysd.h.reshape(1)
+            p = cf.plan(d, sysd.yd.shape[1])
+            rows = (sysd.t, sysd.q, sysd.c, sysd.yd, sysd.resetf,
+                    sysd.updatef, p)
+            fst, bst = df.forward_stack(*rows), df.backward_stack(*rows)
+            tot = ops_k.filter_totals(fst, h1, P0_DIAG)
+            pre = ops_k.block_prefix(tot, d, "diag_filter", False)
+            mom, _ = ops_k.filter_scan(fst, pre, h1, P0_DIAG)
+            stot = ops_k.smooth_totals(bst, mom)
+            suf = ops_k.block_prefix(stot, d, "diag_smooth", True)
+            calls = {
+                "diag_filter_totals": lambda o: o.filter_totals(
+                    fst, h1, P0_DIAG),
+                "block_prefix_diag_filter": lambda o: o.block_prefix(
+                    tot, d, "diag_filter", False),
+                "diag_filter_scan": lambda o: o.filter_scan(
+                    fst, pre, h1, P0_DIAG),
+                "diag_smooth_totals": lambda o: o.smooth_totals(bst, mom),
+                "block_prefix_diag_smooth": lambda o: o.block_prefix(
+                    stot, d, "diag_smooth", True),
+                "diag_score_scan": lambda o: o.score_scan(
+                    bst, mom, suf, h1, P0_DIAG),
+            }
+            for name, _, _ in DIAG_KERNELS:
+                fn = calls[name]
+                got, ref = flat(fn(ops_k), torch), flat(fn(ops_p), torch)
+                err = float((got - ref).abs().max())
+                scale = max(1.0, float(ref.abs().max()))
+                e = out[name]
+                check(bool(torch.isfinite(got).all()),
+                      f"{typ} {name}: non-finite")
+                if dtype == torch.float64:
+                    e["max_abs_err"] = err
+                    e["max_rel_err"] = err / scale
+                    check(err <= 1e-8 * scale, f"{typ} {name}: f64 kernel vs "
+                          f"plain max abs err {err:.3e}")
+                else:
+                    e["max_abs_err_f32"] = err
+                    e["ms"] = cuda_ms(lambda: fn(ops_k), 50, 3, torch)
+                    e["plain_ms"] = cuda_ms(lambda: fn(ops_p), 3, 1, torch)
+                    e["shape"] = (f"{typ} n={p.n} d={d} lanes={p.lanes} "
+                                  f"L={p.L} f32")
+    for name, e in out.items():
+        log(f"  {typ} {name}: {e['ms']:.4f} ms (plain {e['plain_ms']:.2f} "
+            f"ms), f64 max abs err {e['max_abs_err']:.2e}")
+    return out
+
+
+def diag_times(torch, fit):
+    """Profiler device time per kernel and busy share, and nllk+grad wall
+    time (kernels and plain) at a diag fit's optimum, f32."""
+    from smoothsde_tpu_torch.ops.diag_fused import DiagFusedCore, DiagPlainCore
+
+    typ, b32, d32, x = fit["typ"], fit["b32"], fit["d32"], fit["res"].par
+    dev_ms, busy_ms, prof_wall_ms = profile_device_ms(
+        lambda: diag_outer_value_grad(typ, b32, DiagFusedCore, d32, x, torch),
+        10, torch)
+    log(f"[4] {typ} profiler, per nllk+grad: device busy {busy_ms:.3f} ms of "
+        f"{prof_wall_ms:.3f} ms wall; per kernel {json.dumps(dev_ms)}")
+    vg_k = wall_ms(
+        lambda: diag_outer_value_grad(typ, b32, DiagFusedCore, d32, x, torch),
+        110, 5)
+    vg_p = wall_ms(
+        lambda: diag_outer_value_grad(typ, b32, DiagPlainCore, d32, x, torch),
+        5, 1)
+    log(f"[4] {typ} nllk+grad at 1M steps, f32, wall ms: kernels {vg_k}, "
+        f"plain {vg_p}")
+    return dev_ms, {"nllk_grad_1M_ms": {"kernels": vg_k, "plain": vg_p},
+                    "profile_per_nllk_grad_ms": {"device_busy": busy_ms,
+                                                 "wall": prof_wall_ms},
+                    "device_ms": dev_ms}
+
+
 def main():
     import torch
 
@@ -290,10 +556,17 @@ def main():
     pkg_dir = os.path.dirname(os.path.abspath(smoothsde_tpu_torch.__file__))
     check(pkg_dir == os.path.join(HERE, "smoothsde_tpu_torch"),
           f"imported the port from {pkg_dir}, not from this checkout")
+    from functools import partial
+
     from smoothsde_tpu_torch import SDE
     from smoothsde_tpu_torch.infer.fit import make_val_grad
     from smoothsde_tpu_torch.ops import _kernels
     from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+    from smoothsde_tpu_torch.ops.diag_fused import (
+        DiagFusedCore,
+        DiagPlainCore,
+        prepare_diag_data,
+    )
     from smoothsde_tpu_torch.ops.kalman_soa import (
         CtcrwFusedCore,
         CtcrwPlainCore,
@@ -316,6 +589,14 @@ def main():
     worst = phase_kernels_vs_plain(torch, CtcrwFusedCore, CtcrwPlainCore,
                                    prepare_ctcrw_data)
     log(f"[2] worst: {json.dumps(worst)}")
+    worst_diag = {}
+    for typ, n_extra in (("BM_SSM", 1), ("OU_SSM", 2)):
+        log(f"[2] {typ} kernels vs plain versions through DiagFusedCore")
+        worst_diag[typ] = phase_kernels_vs_plain(
+            torch, DiagFusedCore, DiagPlainCore,
+            partial(prepare_diag_data, typ), partial(diag_value_grad, typ),
+            n_extra)
+        log(f"[2] {typ} worst: {json.dumps(worst_diag[typ])}")
 
     log("[3] config 5a: 1M-step 2-D CTCRW fit on the card, f32")
     t = time.time()
@@ -337,7 +618,7 @@ def main():
     check(res.convergence == 0, f"fit did not converge: {res.message}")
     check(abs(tau_hat - 3.0) / 3.0 < 0.05, f"tau {tau_hat} not within 5%")
     check(abs(nu_hat - 1.0) < 0.05, f"nu {nu_hat} not within 5%")
-    for name, _, _ in KERNELS:
+    for name, _, _ in CTCRW_KERNELS:
         check(launches[name] > 0, f"kernel {name} never launched by the fit")
     check(res.cov_fixed is not None and np.all(np.isfinite(res.cov_fixed)),
           "cov_fixed not finite")
@@ -365,6 +646,14 @@ def main():
         check(ev <= 1e-4, f"f32 nllk at the {label}: rel {ev:.3e}")
         check(eg_scale <= 1e-4, f"f32 gradient at the {label}: {eg_scale:.3e}")
     log(f"[3] accuracy: {json.dumps(accuracy)}")
+
+    log("[3b] 1M-step 2-D OU_SSM fit on the card, f32")
+    ou = diag_fit(torch, "3b", "OU_SSM", ou_ssm_1m(), ["y1", "y2"],
+                  [0.0, 0.0, 1.0, 1.0],
+                  {"mu1": 1.0, "mu2": -0.5, "tau": 2.0, "kappa": 1.0})
+    log("[3c] 1M-step 1-D BM_SSM fit on the card, f32")
+    bm = diag_fit(torch, "3c", "BM_SSM", bm_ssm_1m(), ["y"], [0.0, 1.0],
+                  {"mu": 0.05, "sigma": 0.3})
 
     log("[4] kernels vs plain at the fit's shapes, and times")
     ops_k, ops_p = cf.OPS["kernels"], cf.OPS["plain"]
@@ -398,7 +687,7 @@ def main():
                 "ctcrw_score_scan": lambda o: o.score_scan(
                     stack, mom, suf, h1, P0_POS),
             }
-            for name, source, replaces in KERNELS:
+            for name, source, replaces in CTCRW_KERNELS:
                 fn = calls[name]
                 got, ref = flat(fn(ops_k), torch), flat(fn(ops_p), torch)
                 err = float((got - ref).abs().max())
@@ -418,7 +707,7 @@ def main():
                     e["ms"] = cuda_ms(lambda: fn(ops_k), 50, 3, torch)
                     e["plain_ms"] = cuda_ms(lambda: fn(ops_p), 3, 1, torch)
                     e["shape"] = f"n=1000000 d=2 lanes={p.lanes} L={p.L} f32"
-    kernels = [entries[name] for name, _, _ in KERNELS]
+    kernels = [entries[name] for name, _, _ in CTCRW_KERNELS]
     for e in kernels:
         log(f"  {e['name']}: {e['ms']:.4f} ms (plain {e['plain_ms']:.2f} ms),"
             f" f64 max abs err {e['max_abs_err']:.2e}")
@@ -448,6 +737,25 @@ def main():
     }
     log(f"[4] nllk+grad at 1M steps, f32, wall ms: kernels {vg_k}, "
         f"plain {vg_p}")
+
+    log("[4] diag kernels vs plain at the OU_SSM and BM_SSM fits' shapes, "
+        "and times")
+    ou_checks = diag_kernel_checks(torch, ou)
+    bm_checks = diag_kernel_checks(torch, bm)
+    ou_dev_ms, ou_times = diag_times(torch, ou)
+    bm_dev_ms, bm_times = diag_times(torch, bm)
+    for name, source, replaces in DIAG_KERNELS:
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": ou["launches"][name],
+            **ou_checks[name], "device_ms": ou_dev_ms[name],
+            "launches_bm_ssm_fit": bm["launches"][name],
+            **{f"{k}_bm": v for k, v in bm_checks[name].items()},
+            "device_ms_bm": bm_dev_ms[name],
+        })
+    fit_line["kernel_checks_diag"] = worst_diag
+    for fit, times in ((ou, ou_times), (bm, bm_times)):
+        fit_line[fit["typ"]] = {"fit": fit["summary"], **times}
     log("SUMMARY " + json.dumps(fit_line))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,7 +1,7 @@
 """The SDE model class: user-facing API of the PyTorch port.
 
-Port of smoothsde_tpu/api/sde.py for the CTCRW slice: construction from
-formulas + data, fitting by maximum likelihood (host BFGS over the
+Port of smoothsde_tpu/api/sde.py for the ported slice (the state-space
+models CTCRW, BM_SSM and OU_SSM): construction from formulas + data, fitting by maximum likelihood (host BFGS over the
 kernel-backed nllk and its Fisher-identity gradient), the outer
 covariance `cov_fixed`, and parameter evaluation with inverse links.
 
@@ -27,7 +27,8 @@ from smoothsde_tpu_torch.models.registry import get_model_spec
 
 
 class SDE:
-    """Varying-coefficient SDE model (CTCRW slice of the port).
+    """Varying-coefficient SDE model (CTCRW / BM_SSM / OU_SSM slice of
+    the port).
 
     Args:
       formulas: dict mapping SDE parameter names to formula strings
@@ -35,7 +36,10 @@ class SDE:
         order. None = intercept-only for all.
       data: pandas DataFrame or dict of columns with a "time" column, the
         response column(s), covariates, and optionally "ID" (tracks).
-      type: model type; the port runs "CTCRW".
+      type: model type; the port runs "CTCRW" (parameters mu.., tau,
+        nu), "BM_SSM" (mu.., sigma) and "OU_SSM" (mu.., tau, kappa), each
+        with Gaussian measurement error of SD sigma_obs (fitted); other
+        types raise NotImplementedError naming their ROADMAP.md item.
       response: response column name, or list of names (multivariate).
       par0: optional initial response-scale values, one per parameter
         (sequence in parameter order, or dict keyed by name).
@@ -179,7 +183,7 @@ class SDE:
 
         if mesh is not None:
             raise NotImplementedError(
-                "sharded fits are outside the ported CTCRW slice; see "
+                "sharded fits are outside the ported slice; see "
                 "ROADMAP.md queue 1 item 10 (sharding)"
             )
         if criterion != "ML":

@@ -11,7 +11,9 @@
 // element (_combine2) scan order is time order; for the smoothing
 // element (_combine2_rev(acc, new)) the scan runs backwards in time and
 // the accumulator (the later segment in time) comes first. Templated on
-// E so the 5/3-component scalar-state elements can reuse it.
+// E: instantiated for the CTCRW elements (Elem14 forward, Smooth9
+// reverse) and the scalar-state BM_SSM / OU_SSM elements (Elem5 forward,
+// Smooth3 reverse; csrc/diag_common.cuh).
 //
 // Design. One CUDA block of 512 threads per response dim. Thread t
 // composes a contiguous chunk of ceil(NB / 512) blocks sequentially,
@@ -29,9 +31,11 @@
 // (~0.9 MB) do not stay in L1 between iterations: the chunk passes wait
 // on L2 at every step. Shared memory holds E::N * 512 values: 57 KB for
 // the 14-comp element in f64, above the 48 KB default, so the launch
-// raises the kernel's dynamic shared memory limit first.
+// raises the kernel's dynamic shared memory limit first (20 KB for Elem5
+// in f64 would not need it; the launch path is the same for every E).
 
 #include "ctcrw_common.cuh"
+#include "diag_common.cuh"
 
 namespace ssde {
 
@@ -110,6 +114,16 @@ int launch_block_prefix(const T* totals, T* out, int d, int NB, int reverse,
   extern "C" int ssde_block_prefix_smooth_##SUFFIX(                            \
       const T* totals, T* out, int d, int NB, int reverse, void* stream) {     \
     return ssde::launch_block_prefix<T, ssde::Smooth9<T>>(totals, out, d, NB,  \
+                                                          reverse, stream);    \
+  }                                                                            \
+  extern "C" int ssde_block_prefix_diag_filter_##SUFFIX(                       \
+      const T* totals, T* out, int d, int NB, int reverse, void* stream) {     \
+    return ssde::launch_block_prefix<T, ssde::Elem5<T>>(totals, out, d, NB,    \
+                                                        reverse, stream);      \
+  }                                                                            \
+  extern "C" int ssde_block_prefix_diag_smooth_##SUFFIX(                       \
+      const T* totals, T* out, int d, int NB, int reverse, void* stream) {     \
+    return ssde::launch_block_prefix<T, ssde::Smooth3<T>>(totals, out, d, NB,  \
                                                           reverse, stream);    \
   }
 

@@ -1,16 +1,18 @@
-"""Joint negative log-likelihood assembly for the CTCRW slice.
+"""Joint negative log-likelihood assembly for the ported state-space
+models.
 
-Port of smoothsde_tpu/infer/objective.py (build_objective, the CTCRW
-state-space branch):
+Port of smoothsde_tpu/infer/objective.py (build_objective, the isotropic
+state-space branch, objective.py:556-571 of the JAX package):
 
     nllk(params) = -loglik(par_matrix(params))
 
 with par_matrix the (n, n_par) working-scale linear predictor built from
-the fixed-effect design blocks, and loglik the CTCRW Kalman filter on
-the fused kernels (ops/kalman_soa.ctcrw_loglik_soa). The slice is the
-CTCRW model with formulas of intercepts and linear/factor terms, no
-random effects or smooths, no user H or P0, no mesh; everything else
-raises NotImplementedError naming its ROADMAP.md item.
+the fixed-effect design blocks, and loglik the Kalman filter on the fused
+kernels: CTCRW through ops/kalman_soa.ctcrw_loglik_soa, BM_SSM / OU_SSM
+through ops/diag_fused.diag_ssm_loglik_fused. The slice is these models
+with formulas of intercepts and linear/factor terms, no random effects
+or smooths, no user H or P0, no mesh; everything else raises
+NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -23,14 +25,19 @@ import torch
 
 from smoothsde_tpu_torch.infer.params import ParamBlock, ParamPacker
 from smoothsde_tpu_torch.models.registry import ModelSpec
+from smoothsde_tpu_torch.ops.diag_fused import (
+    diag_ssm_loglik_fused,
+    prepare_diag_data,
+)
 from smoothsde_tpu_torch.ops.kalman_soa import (
     ctcrw_loglik_soa,
     prepare_ctcrw_data,
 )
 
+PORTED_TYPES = ("CTCRW", "BM_SSM", "OU_SSM")
+
 _ROADMAP = {
     "random_effects": "queue 1 item 7 (Laplace and random effects)",
-    "scalar_ssm": "queue 1 item 8a (scalar-state SSMs BM_SSM/OU_SSM)",
     "closed_form": "queue 1 item 8b (closed-form family BM/BM_t/OU/CIR)",
     "generic": "queue 1 item 8c (generic filters: user H/P0, ESEAL_SSM)",
 }
@@ -38,18 +45,16 @@ _ROADMAP = {
 
 def _unported(what: str, item: str):
     return NotImplementedError(
-        f"{what} is outside the ported CTCRW slice; see ROADMAP.md "
-        f"{_ROADMAP[item]}"
+        f"{what} is outside the ported slice ({', '.join(PORTED_TYPES)}); "
+        f"see ROADMAP.md {_ROADMAP[item]}"
     )
 
 
 def check_slice(spec: ModelSpec, design=None, other_data=None):
     """Raise NotImplementedError for anything outside the ported slice."""
-    if spec.type in ("BM_SSM", "OU_SSM"):
-        raise _unported(f"model type {spec.type!r}", "scalar_ssm")
     if spec.kind == "closed_form":
         raise _unported(f"model type {spec.type!r}", "closed_form")
-    if spec.type != "CTCRW":
+    if spec.type not in PORTED_TYPES:
         raise _unported(f"model type {spec.type!r}", "generic")
     other_data = other_data or {}
     for key in ("H", "P0"):
@@ -126,7 +131,13 @@ def build_objective(
     fe_off = np.concatenate([[0], np.cumsum(design.ncol_fe)]).astype(int)
     p_fe = int(fe_off[-1])
 
-    data = prepare_ctcrw_data(obs, times, ids, dtype=dtype, device=device)
+    # the per-step data (observations, f64-derived intervals, masks) is
+    # built once on the device, not per evaluation
+    if spec.type == "CTCRW":
+        data = prepare_ctcrw_data(obs, times, ids, dtype=dtype, device=device)
+    else:
+        data = prepare_diag_data(spec.type, obs, times, ids, dtype=dtype,
+                                 device=device)
 
     # ---- parameter blocks (same names and order as the JAX package) ----
     def _init(name, size, default=0.0):
@@ -182,8 +193,13 @@ def build_objective(
 
     def joint_nllk(full):
         sobs = torch.exp(full["log_sigma_obs"][0])
-        return -ctcrw_loglik_soa(
-            par_matrix(full), None, None, None, sigma_obs=sobs, data=data
+        if spec.type == "CTCRW":
+            return -ctcrw_loglik_soa(
+                par_matrix(full), None, None, None, sigma_obs=sobs, data=data
+            )
+        return -diag_ssm_loglik_fused(
+            spec.type, par_matrix(full), None, None, None, sigma_obs=sobs,
+            data=data,
         )
 
     return ObjectiveBundle(

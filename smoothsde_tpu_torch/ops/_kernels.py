@@ -1,10 +1,13 @@
 """Build and bind the hand-written CUDA kernels (csrc/*.cu).
 
-At first use the sources are compiled with nvcc into one shared library
-with a plain C interface and loaded with ctypes:
+At first use each source is compiled by its own nvcc, all started
+together, and the objects are linked into one shared library with a
+plain C interface, loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o <build>/libssde_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c -o <tmp>/<name>.o csrc/<name>.cu   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o <build>/libssde_kernels.so <tmp>/*.o
 
 The library lands in build/smoothsde_tpu_torch/<hash>/ at the root of
 the checkout, keyed by a hash of the sources and flags, so a changed
@@ -28,10 +31,8 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD_ROOT = _PKG.parent / "build" / "smoothsde_tpu_torch"
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 # C argument kinds after the entry-point name: p = device pointer,
 # d = double, i = int. Every entry point ends with the stream (p) and
@@ -48,6 +49,17 @@ _SIGNATURES = {
     "ctcrw_smooth_totals": "pppiii",
     # stack, moments, suffix, h, p0_pos, cot, hbar, rows, L, lanes
     "ctcrw_score_scan": "ppppdppiii",
+    # scalar-state (BM_SSM / OU_SSM) kernels, csrc/diag_*.cu
+    # stack, h, p0, totals, L, lanes
+    "diag_filter_totals": "ppdpii",
+    # stack, prefix, h, p0, moments, llk, L, lanes
+    "diag_filter_scan": "pppdppii",
+    "block_prefix_diag_filter": "ppiii",
+    "block_prefix_diag_smooth": "ppiii",
+    # stack, moments, totals, L, lanes
+    "diag_smooth_totals": "pppii",
+    # stack, moments, suffix, h, p0, cot, hbar, L, lanes
+    "diag_score_scan": "ppppdppii",
 }
 _CTYPES = {"p": ctypes.c_void_p, "d": ctypes.c_double, "i": ctypes.c_int}
 
@@ -83,17 +95,34 @@ def build() -> Path:
     if so.exists():
         return so
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(f) for f in sorted(_CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, *cu]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        jobs = []
+        for f in sorted(_CSRC.glob("*.cu")):
+            obj = Path(tmp_dir) / f"{f.stem}.o"
+            cmd = [nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(f)]
+            jobs.append((f.name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for name, _, proc in jobs:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{name} ({proc.returncode}):\n{out}\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = Path(tmp_dir) / so.name
+        res = subprocess.run(
+            [nvcc, *_ARCH, "-shared", "-o", str(tmp),
+             *(str(obj) for _, obj, _ in jobs)],
+            capture_output=True, text=True,
         )
-    os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({res.returncode}):\n{res.stdout}\n"
+                f"{res.stderr}"
+            )
+        os.replace(tmp, so)  # atomic: a loader never sees half a file
     return so
 
 
@@ -113,33 +142,62 @@ def load():
     return _lib
 
 
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# positions of each entry point's pointer arguments
+_PTRS = {name: tuple(i for i, c in enumerate(sig) if c == "p")
+         for name, sig in _SIGNATURES.items()}
+
+
+def _check_args(name: str, args):
+    """Raise TypeError unless every pointer argument is a contiguous CUDA
+    tensor on the first one's device and of its dtype (float32/float64,
+    which picks the _f32/_f64 symbol); returns the first. Runs before
+    anything is built: one pass of cheap tests, and only a failure walks
+    the arguments again to name the culprit."""
+    sig = _SIGNATURES[name]
+    if len(sig) != len(args):
+        raise TypeError(f"{name} takes {len(sig)} arguments, got {len(args)}")
+    ptrs = [args[i] for i in _PTRS[name]]
+    first = ptrs[0]
+    try:
+        dev, dtype = first.get_device(), first.dtype
+        ok = first.is_cuda and dtype in _SUFFIX
+        for a in ptrs:
+            ok = (ok and a.get_device() == dev and a.dtype is dtype
+                  and a.is_contiguous())
+        if ok:
+            return first
+    except AttributeError:  # not a tensor
+        pass
+    for i, a in enumerate(ptrs):
+        if not (isinstance(a, torch.Tensor) and a.is_cuda):
+            raise TypeError(f"{name}: pointer argument {i} is not a CUDA tensor")
+        if a.device != first.device or a.dtype != first.dtype:
+            raise TypeError(
+                f"{name}: pointer argument {i} is {a.dtype} on {a.device}, "
+                f"the first is {first.dtype} on {first.device}"
+            )
+        if not a.is_contiguous():
+            raise TypeError(f"{name}: pointer argument {i} is not contiguous")
+    raise TypeError(f"{name}: dtype {first.dtype} is not float32/float64")
+
+
 def launch(name: str, *args):
     """Launch kernel `name` on the current stream of the first tensor's
     device. Tensors pass as device pointers (they must stay referenced
     by the caller until the kernel has run, which holding them in the
     argument list guarantees for the enqueue), floats as doubles, ints
-    as ints."""
+    as ints (ctypes converts each by the entry point's argtypes)."""
+    first = _check_args(name, args)
     lib = load()
-    first = next(a for a in args if isinstance(a, torch.Tensor))
-    suffix = {torch.float32: "f32", torch.float64: "f64"}[first.dtype]
-    sig = _SIGNATURES[name]
-    if len(sig) != len(args):
-        raise TypeError(f"{name} takes {len(sig)} arguments, got {len(args)}")
-    c_args = []
-    for kind, a in zip(sig, args):
-        if kind == "p":
-            if not (isinstance(a, torch.Tensor) and a.is_cuda):
-                raise TypeError(f"{name}: expected a CUDA tensor")
-            c_args.append(ctypes.c_void_p(a.data_ptr()))
-        elif kind == "d":
-            c_args.append(ctypes.c_double(float(a)))
-        else:
-            c_args.append(ctypes.c_int(int(a)))
+    c_args = [
+        a.data_ptr() if kind == "p" else float(a) if kind == "d" else int(a)
+        for kind, a in zip(_SIGNATURES[name], args)
+    ]
+    symbol = f"ssde_{name}_{_SUFFIX[first.dtype]}"
     with torch.cuda.device(first.device):
         stream = torch.cuda.current_stream(first.device).cuda_stream
-        err = getattr(lib, f"ssde_{name}_{suffix}")(
-            *c_args, ctypes.c_void_p(stream)
-        )
+        err = getattr(lib, symbol)(*c_args, stream)
     if err != 0:
         msg = lib.ssde_error_string(err).decode()
-        raise RuntimeError(f"CUDA kernel {name}_{suffix} failed: {msg}")
+        raise RuntimeError(f"CUDA kernel {symbol} failed: {msg}")

@@ -44,8 +44,20 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from smoothsde_tpu_torch.ops.kalman_smooth import _ID_S2, Smooth2, _combine2_rev
-from smoothsde_tpu_torch.ops.kalman_soa import _ID2, Element2, _combine2
+from smoothsde_tpu_torch.ops.kalman_smooth import (
+    _ID1_SM,
+    _ID_S2,
+    Smooth2,
+    _comb1_rev,
+    _combine2_rev,
+)
+from smoothsde_tpu_torch.ops.kalman_soa import (
+    _ID1,
+    _ID2,
+    Element2,
+    _comb1,
+    _combine2,
+)
 from smoothsde_tpu_torch.ops.stable import em1, phi, psi
 
 # Steps per lane the geometry aims for. At 1M steps and d = 2 this gives
@@ -386,6 +398,9 @@ class _ElemKind(NamedTuple):
 ELEMS = {
     "filter": _ElemKind(_combine2, _pack_elem, _unpack_elem_full, _ID_VALS),
     "smooth": _ElemKind(_combine2_rev, _pack_sm, _unpack_sm, _ID_SM),
+    # scalar-state elements of BM_SSM / OU_SSM (ops/diag_fused.py)
+    "diag_filter": _ElemKind(_comb1, list, tuple, list(_ID1)),
+    "diag_smooth": _ElemKind(_comb1_rev, list, tuple, list(_ID1_SM)),
 }
 
 
@@ -545,7 +560,8 @@ def score_scan_plain(stack, moments, suffix, h, p0_pos):
 # Wrappers: plain version for CPU tensors, CUDA kernel for CUDA tensors
 # ---------------------------------------------------------------------------
 
-# Launch counts per kernel; the wrappers add one where they launch.
+# Launch counts per kernel of the port (these wrappers' and those of
+# ops/diag_fused.py); each wrapper adds one where it launches.
 LAUNCHES = {
     "ctcrw_filter_totals": 0,
     "block_prefix_filter": 0,
@@ -553,6 +569,12 @@ LAUNCHES = {
     "ctcrw_smooth_totals": 0,
     "block_prefix_smooth": 0,
     "ctcrw_score_scan": 0,
+    "diag_filter_totals": 0,
+    "block_prefix_diag_filter": 0,
+    "diag_filter_scan": 0,
+    "diag_smooth_totals": 0,
+    "block_prefix_diag_smooth": 0,
+    "diag_score_scan": 0,
 }
 
 
@@ -630,7 +652,8 @@ def filter_scan(stack, bd, prefix, h, p0_pos, p0_vel):
 
 def block_prefix(totals, d, elem, reverse):
     """K2 wrapper; see block_prefix_plain. elem: "filter" (14-comp,
-    `_combine2`) or "smooth" (9-comp, `_combine2_rev`)."""
+    `_combine2`), "smooth" (9-comp, `_combine2_rev`), "diag_filter"
+    (5-comp, `_comb1`) or "diag_smooth" (3-comp, `_comb1_rev`)."""
     if not _on_cuda(totals):
         return block_prefix_plain(totals, d, elem, reverse)
     from smoothsde_tpu_torch.ops import _kernels

@@ -1,9 +1,11 @@
-"""RTS smoothing-element algebra for the s=2 SoA Kalman smoother.
+"""RTS smoothing-element algebra for the SoA Kalman smoothers.
 
 Port of the element algebra of smoothsde_tpu/ops/kalman_smooth.py
-(Smooth2, _combine2_rev, _ID_S2). The smoother runs inside the fused
-backward (ops/ctcrw_fused.py and csrc/ctcrw_backward.cu), where these
-elements are composed in reverse time to give the Fisher-identity score.
+(Smooth2, _combine2_rev, _ID_S2) and of its scalar-state counterpart in
+smoothsde_tpu/ops/diag_fused.py (`_comb1_rev`, `_ID1_SM`). The smoothers
+run inside the fused backwards (ops/ctcrw_fused.py, ops/diag_fused.py and
+their csrc/ kernels), where these elements are composed in reverse time
+to give the Fisher-identity score.
 """
 
 from __future__ import annotations
@@ -36,3 +38,14 @@ _ID_S2 = Smooth2(
     g=(0.0, 0.0),
     L=((0.0, 0.0), (0.0, 0.0)),
 )
+
+
+def _comb1_rev(acc, new):
+    """Scalar-state (E, g, L) smoothing composition, `new` applied
+    outside the accumulator (smoothsde_tpu/ops/diag_fused.py `_comb1_rev`)."""
+    Ea, ga, La = acc
+    En, gn, Ln = new
+    return (En * Ea, En * ga + gn, En * En * La + Ln)
+
+
+_ID1_SM = (1.0, 0.0, 0.0)

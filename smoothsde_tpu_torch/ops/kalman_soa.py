@@ -13,7 +13,10 @@ Port of smoothsde_tpu/ops/kalman_soa.py for the CTCRW slice:
     (par_mat, yd, h, dtv, resetf, validf) boundary as the JAX
     package's `_fused_par_core`;
   - `ctcrw_loglik_sequential`, a plain step-by-step filter
-    differentiated by autograd, an independent oracle for the tests.
+    differentiated by autograd, an independent oracle for the tests;
+  - the scalar-state filtering combine `_comb1` (BM_SSM / OU_SSM, whose
+    fused path lives in ops/diag_fused.py) and its step-by-step oracle
+    `diag_ssm_loglik_sequential`.
 
 Model conventions (state = (position, velocity) per response dim,
 observation y = position + N(0, h), prior N((y_s, 0), diag(p0_pos,
@@ -118,6 +121,25 @@ _ID2 = Element2(
     eta=(0.0, 0.0),
     J=((0.0, 0.0), (0.0, 0.0)),
 )
+
+
+def _comb1(e1, e2):
+    """Scalar-state (A, b, C, eta, J) filtering combine, e1 the earlier
+    steps (smoothsde_tpu/ops/diag_fused.py `_comb1`)."""
+    A1, b1, C1, eta1, J1 = e1
+    A2, b2, C2, eta2, J2 = e2
+    M = 1.0 / (1.0 + C1 * J2)
+    A2M = A2 * M
+    return (
+        A2M * A1,
+        A2M * (b1 + C1 * eta2) + b2,
+        A2M * C1 * A2 + C2,
+        A1 * M * (eta2 - J2 * b1) + eta1,
+        A1 * M * J2 * A1 + J1,
+    )
+
+
+_ID1 = (1.0, 0.0, 0.0, 0.0, 0.0)
 
 
 def precompute_dt(times, ids):
@@ -330,4 +352,29 @@ def ctcrw_loglik_sequential(par_mat, obs, times, ids, sigma_obs,
     u = yd - a_pred0
     terms = torch.where(update, -0.5 * (torch.log(F) + u * u / F), 0.0)
     return terms.sum()
+
+
+def diag_ssm_loglik_sequential(type, par_mat, obs, times, ids, sigma_obs,
+                               p0=10.0):
+    """Plain step-by-step BM_SSM / OU_SSM filter, differentiated by
+    autograd: mirrors the JAX package's `diag_ssm_loglik_soa` with a
+    Python loop over the n steps composing the scalar filtering elements
+    with `_comb1`. For tests at small n."""
+    from smoothsde_tpu_torch.ops import diag_fused as df
+
+    sysd = df.diag_system(type, par_mat, obs, times, ids, sigma_obs, p0=p0)
+    flat = df.diag_elements(sysd)
+    d = sysd.yd.shape[0]
+    carry = tuple(
+        torch.full((d,), v, dtype=par_mat.dtype, device=par_mat.device)
+        for v in _ID1
+    )
+    bs, Cs = [], []
+    for i in range(sysd.yd.shape[1]):
+        carry = _comb1(carry, tuple(x[:, i] for x in flat))
+        bs.append(carry[1])
+        Cs.append(carry[2])
+    return df.diag_llk_from_filtered(
+        sysd, torch.stack(bs, dim=-1), torch.stack(Cs, dim=-1)
+    )
 

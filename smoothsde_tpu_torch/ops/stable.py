@@ -1,4 +1,5 @@
-"""Cancellation-free forms of the CTCRW covariance expressions, on tensors.
+"""Cancellation-free forms of the CTCRW and OU covariance expressions, on
+tensors.
 
 Port of smoothsde_tpu/ops/stable.py. The reference computes the CTCRW
 process-noise entries directly (nllk_ctcrw.hpp:64-75):
@@ -148,3 +149,17 @@ def ctcrw_transition_terms(beta, sigma2, dt, xp=torch):
         "bp": bp,
         "bv": bv,
     }
+
+
+def ou_transition_terms(tau, dt, xp=torch):
+    """OU per-step pieces (nllk_ou_ssm.hpp:31-69), elementwise:
+      decay = e^{-dt/tau}                  transition
+      bfac  = em1(u) = 1 - decay            drift factor (times mu)
+      qfac  = em1(u)(1 + decay)             noise factor 1 - decay^2 (times
+                                            kappa), without the cancellation
+                                            of 1 - decay^2 at small dt/tau
+    """
+    u = dt / tau
+    decay = xp.exp(-u)
+    m1 = em1(u, xp)
+    return {"decay": decay, "bfac": m1, "qfac": m1 * (1.0 + decay)}

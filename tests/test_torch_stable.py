@@ -80,3 +80,21 @@ def test_taylor_tables_are_verbatim():
     assert tst._PSI_COEFFS == jst._PSI_COEFFS
     assert tst._PHI_COEFFS == jst._PHI_COEFFS
     assert tst._SERIES_CUTOFF == jst._SERIES_CUTOFF
+
+
+def test_ou_transition_terms_match_jax():
+    """decay, drift factor em1(u) and noise factor em1(u)(1 + decay) of
+    the OU models, on the same grid of u = dt / tau."""
+    rng = np.random.default_rng(1)
+    u = _u_grid()
+    tau = rng.uniform(0.05, 3.0, size=u.size)
+    dt = u * tau
+    ref = jst.ou_transition_terms(jnp.asarray(tau), jnp.asarray(dt))
+    got = tst.ou_transition_terms(torch.tensor(tau), torch.tensor(dt))
+    got_np = tst.ou_transition_terms(tau, dt, xp=np)
+    assert set(ref) == set(got) == set(got_np)
+    for k in ref:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]),
+                                   rtol=RTOL, atol=0, err_msg=k)
+        np.testing.assert_allclose(got_np[k], np.asarray(ref[k]),
+                                   rtol=RTOL, atol=0, err_msg=k)
