@@ -15,8 +15,11 @@ non-zero before the final line:
      f64 kernels vs f64 plain (value rtol 1e-10, gradient 1e-8 of the
      largest component), f32 kernels vs f64 plain (1e-4 relative, the
      docs/ACCURACY.md bar);
-     The same checks for the scalar-state BM_SSM and OU_SSM kernels
-     through DiagFusedCore / DiagPlainCore;
+     the same checks for the element-space CTCRW path, value + gradient
+     through `llk2_analytic` with scan="fused" (K4a, K2, K4b / K5a, K2,
+     K5b) and scan="pallas" (K8 and K2 in both directions), each kernel
+     of the path launched at every shape; and for the scalar-state
+     BM_SSM and OU_SSM kernels through DiagFusedCore / DiagPlainCore;
   3. the CTCRW slice at full size: a 1M-step 2-D CTCRW (dt = 0.1,
      tau = 3, nu = 1, sigma_obs = 0.1, seed 5), simulated here with
      NumPy, fitted by `SDE(..., device="cuda").fit()` in f32; requires
@@ -30,13 +33,27 @@ non-zero before the final line:
      (dt ~ U(0.4, 0.6), mu = 0.05, sigma = 0.3, sigma_obs = 0.1, seed 9),
      each fitted in f32 with the same gates (tau, kappa, sigma within 5%,
      each mu within 0.05 absolute, every diag kernel launched);
+     3d. the element-space path at config 5a's full width (1M steps,
+     d = 2, f32), launch counts from zero: `llk2_analytic` "fused" and
+     "pallas" value + gradient at the optimum and at the start point,
+     and `sde.smoothed_states()`; gates: f32 nllk (1e-4 relative) and
+     gradient (1e-4 of |nllk|) against the f64 plain version, smoothed
+     means and covariances against the f64 plain Hillis-Steele scan to
+     the PERF.md bar (positions 1e-5 of the largest, velocities and
+     covariances 1e-3 of the largest), f64 kernels against
+     the par-space CtcrwFusedCore in f64 (value 1e-10, gradient 1e-8 of
+     its largest component over the two points), every element-space
+     kernel and K8 launched;
   4. each kernel against its plain version at its fit's shapes (the
-     diag kernels at both the OU_SSM and the BM_SSM fit's; f64, max abs
-     error within 1e-8 of the output's scale), and times on the
-     card: each kernel and its plain version (CUDA events), nllk + grad
-     at 1M steps (host wall time per call, median and p90, kernels and
-     plain), device time per kernel and the device's busy share
-     (torch.profiler), the fits. Each fit counts its launches from zero.
+     diag kernels at both the OU_SSM and the BM_SSM fit's, the
+     element-space kernels and K8 at config 5a's; f64, max abs error
+     within 1e-8 of the output's scale), and times on the card: each
+     kernel and its plain version (CUDA events), nllk + grad at 1M
+     steps (host wall time per call, median and p90, kernels and plain;
+     the element-space "fused" and "pallas" beside the par-space core),
+     `smoothed_states()` at 1M, device time per kernel and the device's
+     busy share (torch.profiler), the fits. Each fit counts its launches
+     from zero.
 
 The line before last is the card as nvidia-smi reports it, the one
 before that a JSON object {"kernels": [...]}, and the last line
@@ -48,6 +65,7 @@ import os
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 
@@ -84,7 +102,25 @@ DIAG_KERNELS = [
     ("diag_score_scan", "smoothsde_tpu_torch/csrc/diag_backward.cu",
      f"{DIAG_TPU_KERNEL}:588"),
 ]
-KERNELS = CTCRW_KERNELS + DIAG_KERNELS
+SCAN_TPU_KERNEL = "smoothsde_tpu/ops/scan_utils.py"
+ELEM_SRC = "smoothsde_tpu_torch/csrc/elem_fused.cu"
+PHASE1_SRC = "smoothsde_tpu_torch/csrc/phase1_scan.cu"
+ELEM_KERNELS = [
+    ("elem_filter_totals", ELEM_SRC, f"{TPU_KERNEL}:410"),
+    ("elem_filter_scan", ELEM_SRC, f"{TPU_KERNEL}:525"),
+    ("elem_smooth_totals", ELEM_SRC, f"{TPU_KERNEL}:1105"),
+    ("elem_score_scan", ELEM_SRC, f"{TPU_KERNEL}:1260"),
+    ("phase1_scan_filter", PHASE1_SRC, f"{SCAN_TPU_KERNEL}:81"),
+    ("phase1_scan_smooth", PHASE1_SRC, f"{SCAN_TPU_KERNEL}:81"),
+]
+# the kernels llk2_analytic (value + gradient) launches, per scan
+ELEM_PATH = {
+    "fused": ("elem_filter_totals", "block_prefix_filter", "elem_filter_scan",
+              "elem_smooth_totals", "block_prefix_smooth", "elem_score_scan"),
+    "pallas": ("phase1_scan_filter", "block_prefix_filter",
+               "phase1_scan_smooth", "block_prefix_smooth"),
+}
+KERNELS = CTCRW_KERNELS + DIAG_KERNELS + ELEM_KERNELS
 P0_DIAG = 10.0
 
 
@@ -234,6 +270,46 @@ def diag_outer_value_grad(typ, bundle, core, data, x, torch):
     return float(v.detach()), g.double().cpu().numpy()
 
 
+def elem_system(par, sobs, data):
+    """The element-space CtcrwSystem of the likelihood's boundary data."""
+    from smoothsde_tpu_torch.ops.kalman_soa import _ctcrw_system
+
+    return _ctcrw_system(par, None, None, None, sobs, P0_POS, P0_VEL,
+                         dt=data.dtv, yd=data.yd, reset=data.resetf > 0.5,
+                         valid=data.validf > 0.5)
+
+
+def elem_value_grad(scan, par, sobs, data, torch):
+    """loglik_value_grad through llk2_analytic(scan); checks that every
+    kernel of the path was launched (counts from zero)."""
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+    from smoothsde_tpu_torch.ops.kalman_smooth import llk2_analytic
+
+    p = par.detach().clone().requires_grad_(True)
+    s = sobs.detach().clone().requires_grad_(True)
+    cf.reset_launches()
+    v = llk2_analytic(elem_system(p, s, data), scan)
+    gp, gs = torch.autograd.grad(v, (p, s))
+    for name in ELEM_PATH[scan]:
+        check(cf.LAUNCHES[name] > 0,
+              f"{scan} path at d={data.yd.shape[0]} n={data.yd.shape[1]}: "
+              f"{name} never launched")
+    return float(v.detach()), gp.double().cpu().numpy(), float(gs)
+
+
+def elem_outer_value_grad(bundle, data, x, scan, torch):
+    """outer_value_grad through llk2_analytic(scan)."""
+    from smoothsde_tpu_torch.ops.kalman_smooth import llk2_analytic
+
+    xt = torch.tensor(x, dtype=bundle.dtype, device=bundle.device,
+                      requires_grad=True)
+    full = bundle.packer.unpack(xt)
+    s = torch.exp(full["log_sigma_obs"][0])
+    v = -llk2_analytic(elem_system(bundle.par_matrix(full), s, data), scan)
+    (g,) = torch.autograd.grad(v, xt)
+    return float(v.detach()), g.double().cpu().numpy()
+
+
 def outer_value_grad(bundle, core, data, x, torch):
     """Joint nllk and its gradient in the outer vector x through `core`
     (the objective's own formula: -loglik(par_matrix), h = sigma_obs^2)."""
@@ -276,9 +352,12 @@ def wall_ms(fn, reps, warm):
 
 
 def kernel_of(key):
-    """KERNELS name of a profiler kernel key: K2 by its element type (the
-    template argument), the per-lane kernels by name, diag first (the
-    CTCRW names are substrings of the diag ones)."""
+    """KERNELS name of a profiler kernel key: K8 and K2 by their element
+    type (the template argument), the per-lane kernels by name, diag and
+    elem first (the CTCRW names are substrings of theirs)."""
+    if "phase1_scan_kernel" in key:
+        return ("phase1_scan_filter" if "Elem14" in key
+                else "phase1_scan_smooth" if "Smooth9" in key else None)
     if "block_prefix_kernel" in key:
         for elem, name in (("Elem14", "block_prefix_filter"),
                            ("Smooth9", "block_prefix_smooth"),
@@ -288,8 +367,9 @@ def kernel_of(key):
                 return name
         return None
     for n in ("filter_totals", "filter_scan", "smooth_totals", "score_scan"):
-        if f"diag_{n}_kernel" in key:
-            return f"diag_{n}"
+        for family in ("diag", "elem"):
+            if f"{family}_{n}_kernel" in key:
+                return f"{family}_{n}"
         if f"{n}_kernel" in key:
             return f"ctcrw_{n}"
     return None
@@ -342,43 +422,46 @@ def flat(out, torch):
 # ---------------------------------------------------------------------------
 
 
-def phase_kernels_vs_plain(torch, core_k, core_p, prepare,
-                           value_grad=loglik_value_grad, n_extra=2):
-    """value_grad(core, par, sobs, data, torch) -> (llk, dpar, dsobs);
-    n_extra: the model's parameters beyond the d mus (2 for CTCRW and
-    OU_SSM: the two log-scale columns; 1 for BM_SSM: the first)."""
+def phase_kernels_vs_plain(torch, variants, prepare, n_extra=2):
+    """variants: {tag: (dtype, value_grad)} with value_grad(par, sobs,
+    data, torch) -> (llk, dpar, dsobs); "ref" is the f64 plain version,
+    the others are held to it: f64 ones (value rtol 1e-10, gradient 1e-8
+    of the largest component), f32 ones (1e-4, 1e-4). n_extra: the
+    model's parameters beyond the d mus (2 for CTCRW and OU_SSM: the two
+    log-scale columns; 1 for BM_SSM: the first)."""
     dev = torch.device("cuda")
-    worst = {"f64_val": 0.0, "f64_grad": 0.0, "f32_val": 0.0, "f32_grad": 0.0}
+    worst = {f"{tag}_{q}": 0.0 for tag in variants if tag != "ref"
+             for q in ("val", "grad")}
     for d in (1, 2, 3):
         for n in (80, 5_000, 200_000):
             obs, times, ids, par = two_track_data(d, n, seed=100 * d + n % 97)
             par = par[:, :d + n_extra]
             res = {}
-            for tag, dtype, core in (("k64", torch.float64, core_k),
-                                     ("p64", torch.float64, core_p),
-                                     ("k32", torch.float32, core_k)):
+            for tag, (dtype, value_grad) in variants.items():
                 data = prepare(obs, times, ids, dtype=dtype, device=dev)
                 pt = torch.tensor(par, dtype=dtype, device=dev)
                 st = torch.tensor(0.2, dtype=dtype, device=dev)
-                res[tag] = value_grad(core, pt, st, data, torch)
+                res[tag] = value_grad(pt, st, data, torch)
             torch.cuda.synchronize()
-            v64, g64, s64 = res["p64"]
+            v64, g64, s64 = res["ref"]
             gscale = max(np.max(np.abs(g64)), abs(s64))
-            for tag, (tol_v, tol_g) in (("k64", (1e-10, 1e-8)),
-                                        ("k32", (1e-4, 1e-4))):
+            for tag, (dtype, _) in variants.items():
+                if tag == "ref":
+                    continue
+                tol_v, tol_g = ((1e-10, 1e-8) if dtype == torch.float64
+                                else (1e-4, 1e-4))
                 v, g, s = res[tag]
                 ev = abs(v - v64) / abs(v64)
                 eg = max(np.max(np.abs(g - g64)), abs(s - s64)) / gscale
-                key = "f64" if tag == "k64" else "f32"
-                worst[f"{key}_val"] = max(worst[f"{key}_val"], ev)
-                worst[f"{key}_grad"] = max(worst[f"{key}_grad"], eg)
+                worst[f"{tag}_val"] = max(worst[f"{tag}_val"], ev)
+                worst[f"{tag}_grad"] = max(worst[f"{tag}_grad"], eg)
                 check(np.isfinite(v) and np.all(np.isfinite(g)),
                       f"{tag} d={d} n={n}: non-finite output")
                 check(ev <= tol_v, f"{tag} d={d} n={n}: value rel {ev:.3e}")
                 check(eg <= tol_g, f"{tag} d={d} n={n}: grad rel {eg:.3e}")
-            log(f"  d={d} n={n}: f64 kernels vs plain value "
-                f"{abs(res['k64'][0] - v64) / abs(v64):.2e}; f32 kernels vs "
-                f"f64 plain value {abs(res['k32'][0] - v64) / abs(v64):.2e}")
+            log(f"  d={d} n={n}: value rel to the f64 plain version: " +
+                ", ".join(f"{tag} {abs(r[0] - v64) / abs(v64):.2e}"
+                          for tag, r in res.items() if tag != "ref"))
     return worst
 
 
@@ -543,6 +626,196 @@ def diag_times(torch, fit):
                     "device_ms": dev_ms}
 
 
+def elem_full_width(torch, sde, data, x_points, b32, b64, d32, d64,
+                    plain64):
+    """Phase 3d: the element-space path at config 5a's full width, f32,
+    launch counts from zero over the path (llk2_analytic "fused" and
+    "pallas" value + gradient at both points, sde.smoothed_states());
+    then the gates against the f64 plain version and the f64 par-space
+    kernels. Returns the launches and a summary."""
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+    from smoothsde_tpu_torch.ops.kalman_smooth import ctcrw_smoothed_states
+    from smoothsde_tpu_torch.ops.kalman_soa import CtcrwFusedCore
+
+    scans = ("fused", "pallas")
+    cf.reset_launches()
+    vals = {(where, scan): elem_outer_value_grad(b32, d32, x, scan, torch)
+            for where, x in x_points.items() for scan in scans}
+    t = time.perf_counter()
+    means, covs = sde.smoothed_states()
+    first_s = time.perf_counter() - t
+    launches = dict(cf.LAUNCHES)
+    log(f"[3d] launches over the path: {launches}")
+    for name in ELEM_PATH["fused"] + ELEM_PATH["pallas"]:
+        check(launches[name] > 0, f"kernel {name} never launched in 3d")
+
+    acc = {}
+    for (where, scan), (v32, g32) in vals.items():
+        v64, g64 = plain64[where]
+        ev = abs(v32 - v64) / abs(v64)
+        eg = float(np.max(np.abs(g32 - g64)) / abs(v64))
+        acc[f"{scan}_{where}_f32_vs_f64_plain"] = {
+            "nllk_rel": ev, "grad_err_over_nllk": eg}
+        check(ev <= 1e-4, f"3d {scan} f32 nllk at the {where}: rel {ev:.3e}")
+        check(eg <= 1e-4, f"3d {scan} f32 gradient at the {where}: {eg:.3e}")
+    ref = {where: outer_value_grad(b64, CtcrwFusedCore, d64, x, torch)
+           for where, x in x_points.items()}
+    gscale = max(float(np.max(np.abs(g))) for _, g in ref.values())
+    for where, x in x_points.items():
+        rv, rg = ref[where]
+        for scan in scans:
+            v, g = elem_outer_value_grad(b64, d64, x, scan, torch)
+            ev = abs(v - rv) / abs(rv)
+            eg = float(np.max(np.abs(g - rg))) / gscale
+            acc[f"{scan}_{where}_f64_vs_par_space_f64"] = {
+                "nllk_rel": ev, "grad_err_over_max_grad": eg}
+            check(ev <= 1e-10, f"3d {scan} f64 nllk at the {where}: {ev:.3e}")
+            check(eg <= 1e-8, f"3d {scan} f64 gradient at the {where}: "
+                  f"{eg:.3e}")
+
+    dev = torch.device("cuda")
+    with torch.no_grad():
+        full = b64.packer.unpack(torch.tensor(x_points["optimum"],
+                                              dtype=torch.float64, device=dev))
+        args = (b64.par_matrix(full), sde.obs(), data["time"], data["ID"],
+                torch.exp(full["log_sigma_obs"][0]))
+        m64, c64 = (t.cpu().numpy() for t in ctcrw_smoothed_states(
+            *args, scan="associative"))
+        mk, ck = (t.cpu().numpy() for t in ctcrw_smoothed_states(*args))
+    sm = {}
+    # the f32 covariance bar: at a track start the velocity variance is
+    # the prior's 10 less ~9.9 of update, a cancellation that costs f32
+    # ~2e-4 of the largest covariance in any scan order (PERF.md)
+    for tag, (m, c), bars in (("f32_vs_f64_plain", (means, covs),
+                               (1e-5, 1e-3, 1e-3)),
+                              ("f64_kernels_vs_f64_plain", (mk, ck),
+                               (1e-8, 1e-8, 1e-8))):
+        check(np.all(np.isfinite(m)) and np.all(np.isfinite(c)),
+              f"3d smoothed states {tag}: non-finite")
+        errs = {
+            "pos": float(np.max(np.abs(m[..., 0] - m64[..., 0]))
+                         / np.max(np.abs(m64[..., 0]))),
+            "vel": float(np.max(np.abs(m[..., 1] - m64[..., 1]))
+                         / np.max(np.abs(m64[..., 1]))),
+            "cov": float(np.max(np.abs(c - c64)) / np.max(np.abs(c64))),
+        }
+        sm[tag] = errs
+        for (key, err), bar in zip(errs.items(), bars):
+            check(err <= bar, f"3d smoothed {key} {tag}: {err:.3e} > {bar}")
+    sm["max_abs_position"] = float(np.max(np.abs(m64[..., 0])))
+    sm["max_abs_velocity"] = float(np.max(np.abs(m64[..., 1])))
+    sm["max_abs_cov"] = float(np.max(np.abs(c64)))
+    check(means.shape == (2, len(data["time"]), 2)
+          and covs.shape == (2, len(data["time"]), 2, 2),
+          f"smoothed states shapes {means.shape}, {covs.shape}")
+    wall = wall_ms(lambda: sde.smoothed_states(), 5, 1)
+    log(f"[3d] accuracy: {json.dumps(acc)}")
+    log(f"[3d] smoothed states (errors relative to the largest value of "
+        f"each kind): {json.dumps(sm)}; smoothed_states() wall ms {wall} "
+        f"(first call {first_s * 1e3:.1f} ms)")
+    return {"launches": launches,
+            "summary": {"accuracy": acc, "smoothed_states": sm,
+                        "smoothed_states_wall_ms": wall,
+                        "smoothed_states_first_call_ms": first_s * 1e3}}
+
+
+def elem_kernel_checks(torch, b32, b64, d32, d64, x):
+    """Phase 4 for the element-space kernels and K8 at config 5a's
+    shapes: each against its plain version (f64, max abs error within
+    1e-8 of the output's scale), its time and its plain version's (f32,
+    CUDA events), device times (profiler) and nllk+grad wall time of the
+    "fused" and "pallas" paths. Returns ({kernel name: measurements},
+    times)."""
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+    from smoothsde_tpu_torch.ops import scan_utils as su
+    from smoothsde_tpu_torch.ops.kalman_smooth import rts_elements
+    from smoothsde_tpu_torch.ops.kalman_soa import (
+        _ID2,
+        _combine2,
+        _scan_elements,
+    )
+
+    dev = torch.device("cuda")
+    ops_k, ops_p = cf.ELEM_OPS["kernels"], cf.ELEM_OPS["plain"]
+    out = {name: {} for name, _, _ in ELEM_KERNELS}
+    for dtype, dat, bun in ((torch.float64, d64, b64),
+                            (torch.float32, d32, b32)):
+        with torch.no_grad():
+            full = bun.packer.unpack(torch.tensor(x, dtype=dtype, device=dev))
+            sys = elem_system(bun.par_matrix(full),
+                              torch.exp(full["log_sigma_obs"][0]), dat)
+            d, n = sys.yd.shape
+            p = cf.plan(d, n)
+            h1 = sys.h.reshape(1)
+            fst = cf.elem_forward_stack(sys, p)
+            bst = cf.elem_backward_stack(sys, p)
+            tot = ops_k.filter_totals(fst, h1, P0_POS, P0_VEL)
+            pre = ops_k.block_prefix(tot, d, "filter", False)
+            mom, _ = ops_k.filter_scan(fst, pre, h1, P0_POS, P0_VEL)
+            stot = ops_k.smooth_totals(bst, mom)
+            suf = ops_k.block_prefix(stot, d, "smooth", True)
+            filt = _scan_elements(_combine2, _ID2, sys.elem, "pallas")
+            te = torch.cat([sys.reset[1:], sys.reset.new_ones(1)])
+            sm = rts_elements(sys.Ft, sys.ct, sys.Qt, filt.b, filt.C, te)[0]
+            el_st = cf.pad_to_lanes(torch.stack(cf._pack_elem(sys.elem)),
+                                    cf._ID_VALS, p)
+            sm_st = cf.pad_to_lanes(torch.stack(cf._pack_sm(sm)), cf._ID_SM,
+                                    p)
+            calls = {
+                "elem_filter_totals": lambda o: o.filter_totals(
+                    fst, h1, P0_POS, P0_VEL),
+                "elem_filter_scan": lambda o: o.filter_scan(
+                    fst, pre, h1, P0_POS, P0_VEL),
+                "elem_smooth_totals": lambda o: o.smooth_totals(bst, mom),
+                "elem_score_scan": lambda o: o.score_scan(
+                    bst, mom, suf, h1, P0_POS),
+            }
+            pairs = {name: (partial(fn, ops_k), partial(fn, ops_p))
+                     for name, fn in calls.items()}
+            pairs["phase1_scan_filter"] = (
+                partial(su.pallas_phase1_scan, el_st, "filter"),
+                partial(su.pallas_phase1_scan_plain, el_st, "filter"))
+            pairs["phase1_scan_smooth"] = (
+                partial(su.pallas_phase1_scan, sm_st, "smooth", True),
+                partial(su.pallas_phase1_scan_plain, sm_st, "smooth", True))
+            for name, (kfn, pfn) in pairs.items():
+                got, ref = flat(kfn(), torch), flat(pfn(), torch)
+                err = float((got - ref).abs().max())
+                scale = max(1.0, float(ref.abs().max()))
+                e = out[name]
+                check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+                if dtype == torch.float64:
+                    e["max_abs_err"] = err
+                    e["max_rel_err"] = err / scale
+                    check(err <= 1e-8 * scale,
+                          f"{name}: f64 kernel vs plain max abs err {err:.3e}")
+                else:
+                    e["max_abs_err_f32"] = err
+                    e["ms"] = cuda_ms(kfn, 50, 3, torch)
+                    e["plain_ms"] = cuda_ms(pfn, 3, 1, torch)
+                    e["shape"] = f"n={n} d={d} lanes={p.lanes} L={p.L} f32"
+    times = {}
+    for scan in ("fused", "pallas"):
+        def vg(scan=scan):
+            return elem_outer_value_grad(b32, d32, x, scan, torch)
+
+        dev_ms, busy_ms, prof_wall_ms = profile_device_ms(vg, 10, torch)
+        for name in ELEM_PATH[scan]:
+            if name in out:
+                out[name]["device_ms"] = dev_ms[name]
+        times[f"nllk_grad_1M_ms_{scan}"] = wall_ms(vg, 110, 5)
+        times[f"profile_per_nllk_grad_ms_{scan}"] = {
+            "device_busy": busy_ms, "wall": prof_wall_ms,
+            "device_ms": dev_ms}
+        log(f"[4] llk2_analytic {scan}: profiler device busy {busy_ms:.3f} ms "
+            f"of {prof_wall_ms:.3f} ms wall; nllk+grad wall ms "
+            f"{times[f'nllk_grad_1M_ms_{scan}']}")
+    for name, e in out.items():
+        log(f"  {name}: {e['ms']:.4f} ms (plain {e['plain_ms']:.2f} ms), "
+            f"f64 max abs err {e['max_abs_err']:.2e}")
+    return out, times
+
+
 def main():
     import torch
 
@@ -556,8 +829,6 @@ def main():
     pkg_dir = os.path.dirname(os.path.abspath(smoothsde_tpu_torch.__file__))
     check(pkg_dir == os.path.join(HERE, "smoothsde_tpu_torch"),
           f"imported the port from {pkg_dir}, not from this checkout")
-    from functools import partial
-
     from smoothsde_tpu_torch import SDE
     from smoothsde_tpu_torch.infer.fit import make_val_grad
     from smoothsde_tpu_torch.ops import _kernels
@@ -585,17 +856,27 @@ def main():
     _kernels.load()
     log(f"[1] kernels built in {time.time() - t:.1f} s: {so.name}")
 
-    log("[2] kernels vs plain versions through the autograd.Function")
-    worst = phase_kernels_vs_plain(torch, CtcrwFusedCore, CtcrwPlainCore,
-                                   prepare_ctcrw_data)
+    f32, f64 = torch.float32, torch.float64
+    log("[2] kernels vs plain versions through the autograd.Function: "
+        "par-space (k), element-space fused and pallas (llk2_analytic)")
+    variants = {
+        "ref": (f64, partial(loglik_value_grad, CtcrwPlainCore)),
+        "k64": (f64, partial(loglik_value_grad, CtcrwFusedCore)),
+        "k32": (f32, partial(loglik_value_grad, CtcrwFusedCore)),
+    }
+    for scan in ("fused", "pallas"):
+        variants[f"{scan}64"] = (f64, partial(elem_value_grad, scan))
+        variants[f"{scan}32"] = (f32, partial(elem_value_grad, scan))
+    worst = phase_kernels_vs_plain(torch, variants, prepare_ctcrw_data)
     log(f"[2] worst: {json.dumps(worst)}")
     worst_diag = {}
     for typ, n_extra in (("BM_SSM", 1), ("OU_SSM", 2)):
         log(f"[2] {typ} kernels vs plain versions through DiagFusedCore")
-        worst_diag[typ] = phase_kernels_vs_plain(
-            torch, DiagFusedCore, DiagPlainCore,
-            partial(prepare_diag_data, typ), partial(diag_value_grad, typ),
-            n_extra)
+        worst_diag[typ] = phase_kernels_vs_plain(torch, {
+            "ref": (f64, partial(diag_value_grad, typ, DiagPlainCore)),
+            "k64": (f64, partial(diag_value_grad, typ, DiagFusedCore)),
+            "k32": (f32, partial(diag_value_grad, typ, DiagFusedCore)),
+        }, partial(prepare_diag_data, typ), n_extra)
         log(f"[2] {typ} worst: {json.dumps(worst_diag[typ])}")
 
     log("[3] config 5a: 1M-step 2-D CTCRW fit on the card, f32")
@@ -632,9 +913,12 @@ def main():
     d64 = prepare_ctcrw_data(sde.obs(), data["time"], data["ID"],
                              dtype=torch.float64, device=dev)
     accuracy = {}
-    for label, x in (("optimum", res.par), ("start", b32.packer.outer_init())):
+    x_points = {"optimum": res.par, "start": b32.packer.outer_init()}
+    plain64 = {}
+    for label, x in x_points.items():
         v32, g32 = make_val_grad(b32)(x)  # the fit's own evaluation
         v64, g64 = outer_value_grad(b64, CtcrwPlainCore, d64, x, torch)
+        plain64[label] = (v64, g64)
         ev = abs(v32 - v64) / abs(v64)
         eg_scale = float(np.max(np.abs(g32 - g64)) / abs(v64))
         eg_comp = float(np.max(np.abs(g32 - g64) / np.maximum(
@@ -654,6 +938,11 @@ def main():
     log("[3c] 1M-step 1-D BM_SSM fit on the card, f32")
     bm = diag_fit(torch, "3c", "BM_SSM", bm_ssm_1m(), ["y"], [0.0, 1.0],
                   {"mu": 0.05, "sigma": 0.3})
+
+    log("[3d] element-space path at config 5a's full width (1M steps, "
+        "d = 2, f32)")
+    elem = elem_full_width(torch, sde, data, x_points, b32, b64, d32, d64,
+                           plain64)
 
     log("[4] kernels vs plain at the fit's shapes, and times")
     ops_k, ops_p = cf.OPS["kernels"], cf.OPS["plain"]
@@ -737,6 +1026,11 @@ def main():
     }
     log(f"[4] nllk+grad at 1M steps, f32, wall ms: kernels {vg_k}, "
         f"plain {vg_p}")
+    log("[4] element-space kernels and K8 vs plain at config 5a's shapes, "
+        "and times")
+    elem_checks, elem_times = elem_kernel_checks(torch, b32, b64, d32, d64,
+                                                 x_hat)
+    fit_line["elem_path"] = {**elem["summary"], **elem_times}
 
     log("[4] diag kernels vs plain at the OU_SSM and BM_SSM fits' shapes, "
         "and times")
@@ -752,6 +1046,12 @@ def main():
             "launches_bm_ssm_fit": bm["launches"][name],
             **{f"{k}_bm": v for k, v in bm_checks[name].items()},
             "device_ms_bm": bm_dev_ms[name],
+        })
+    for name, source, replaces in ELEM_KERNELS:
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": elem["launches"][name],
+            **elem_checks[name],
         })
     fit_line["kernel_checks_diag"] = worst_diag
     for fit, times in ((ou, ou_times), (bm, bm_times)):

@@ -1,9 +1,11 @@
 """The SDE model class: user-facing API of the PyTorch port.
 
 Port of smoothsde_tpu/api/sde.py for the ported slice (the state-space
-models CTCRW, BM_SSM and OU_SSM): construction from formulas + data, fitting by maximum likelihood (host BFGS over the
-kernel-backed nllk and its Fisher-identity gradient), the outer
-covariance `cov_fixed`, and parameter evaluation with inverse links.
+models CTCRW, BM_SSM and OU_SSM): construction from formulas + data,
+fitting by maximum likelihood (host BFGS over the kernel-backed nllk and
+its Fisher-identity gradient), the outer covariance `cov_fixed`,
+parameter evaluation with inverse links, and the smoothed states of a
+fitted CTCRW.
 
 The device and the working type are explicit: `device="cuda"` (the
 default) runs the hand-written CUDA kernels, `device="cpu"` their plain
@@ -145,6 +147,7 @@ class SDE:
                 self._coeff_fe[i0[i]] = float(p.link(float(v)))
         self._other_data = dict(other_data or {})
         self._bundle = None
+        self._fit_result = None
 
     def coeff_fe(self) -> np.ndarray:
         return self._coeff_fe.copy()
@@ -202,7 +205,48 @@ class SDE:
         res = fit_model(self._bundle, verbose=not silent, **kwargs)
         est = self._bundle.packer.split_estimates(res.par)
         self._coeff_fe = np.asarray(est["coeff_fe"])
+        self._fit_result = res
         return res
+
+    def out(self):
+        """The result of the last fit()."""
+        if self._fit_result is None:
+            raise RuntimeError("Fit model first")
+        return self._fit_result
+
+    # ------------------------------------------------------------------
+    # States
+    # ------------------------------------------------------------------
+
+    def smoothed_states(self):
+        """Smoothed (position, velocity) state distributions for CTCRW
+        models at the fitted parameters, through the parallel RTS
+        smoother (a capability beyond the reference, which only reports
+        filtered states). Returns NumPy (means (d, n, 2), covs
+        (d, n, 2, 2)). On a CUDA model the scans run on the phase-1
+        kernel K8 (ops/scan_utils.py) and the cross-block prefix K2."""
+        if self._type != "CTCRW":
+            raise NotImplementedError(
+                "smoothed_states is currently implemented for CTCRW"
+            )
+        if self._other_data.get("H") is not None:
+            raise NotImplementedError(
+                "smoothed_states requires isotropic observation noise"
+            )
+        from smoothsde_tpu_torch.ops.kalman_smooth import (
+            ctcrw_smoothed_states,
+        )
+
+        res = self.out()
+        bundle = self.bundle()
+        with torch.no_grad():
+            full = bundle.packer.unpack(torch.as_tensor(
+                res.par, dtype=bundle.dtype, device=bundle.device))
+            means, covs = ctcrw_smoothed_states(
+                bundle.par_matrix(full), self._obs, self._times, self._ids,
+                sigma_obs=torch.exp(full["log_sigma_obs"][0]),
+            )
+        return means.cpu().numpy(), covs.cpu().numpy()
 
     # ------------------------------------------------------------------
     # Parameters

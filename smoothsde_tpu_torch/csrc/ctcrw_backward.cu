@@ -79,67 +79,17 @@ __global__ void __launch_bounds__(128)
     const T y = row[6LL * lanes];
     const T U = row[7LL * lanes];
     const T R = row[8LL * lanes];
-    // smoothed at l + 1 is the incoming accumulator
-    const T ms1_0 = acc.g0, ms1_1 = acc.g1;
-    const T Ps1_00 = acc.L00, Ps1_01 = acc.L01, Ps1_11 = acc.L11;
     const ParTerms<T> w = par_terms(row[0], row[(long long)lanes],
                                     row[2LL * lanes], row[3LL * lanes], R);
     T G[4];
     const Smooth9<T> e =
         smooth_elem(w, m[0], m[(long long)lanes], m[2LL * lanes],
                     m[3LL * lanes], m[4LL * lanes], te, G);
-    acc = Smooth9<T>::combine(acc, e);
-    const T ms0 = acc.g0, ms1 = acc.g1;  // smoothed at l
-    const T Ps00 = acc.L00, Ps01 = acc.L01, Ps11 = acc.L11;
-
-    const T f01 = w.f01, f11 = w.f11, c0 = w.c0, c1 = w.c1;
-    // sanitized Qn inverse
-    const T q00 = TVn * w.q00 + (T(1) - TVn);
-    const T q01 = TVn * w.q01;
-    const T q11 = TVn * w.q11 + (T(1) - TVn);
-    const T det = q00 * q11 - q01 * q01;
-    const T qi00 = q11 / det, qi01 = -q01 / det, qi11 = q00 / det;
-
-    // lag-one Cov(x_{l+1}, x_l | y) = P_s_{l+1} G'
-    const T C00 = Ps1_00 * G[0] + Ps1_01 * G[1];
-    const T C01 = Ps1_00 * G[2] + Ps1_01 * G[3];
-    const T C10 = Ps1_01 * G[0] + Ps1_11 * G[1];
-    const T C11 = Ps1_01 * G[2] + Ps1_11 * G[3];
-    const T Exx01 = Ps01 + ms0 * ms1;
-    const T Exx11 = Ps11 + ms1 * ms1;
-    const T Ex2x01 = C01 + ms1_0 * ms1;
-    const T Ex2x11 = C11 + ms1_1 * ms1;
-    // r = m_{l+1} - Fn m_l - cn ; Fn rows (1, f01), (0, f11)
-    const T r0 = ms1_0 - (ms0 + f01 * ms1) - c0;
-    const T r1 = ms1_1 - f11 * ms1 - c1;
-
-    // Fbar = Qinv (Ex2x1 - Fn Exx - cn m_l'), second column
-    const T T01 = Ex2x01 - (Exx01 + f01 * Exx11) - c0 * ms1;
-    const T T11 = Ex2x11 - f11 * Exx11 - c1 * ms1;
-    const T Fb01 = qi00 * T01 + qi01 * T11;
-    const T Fb11 = qi01 * T01 + qi11 * T11;
-    // cbar = Qinv r
-    const T cb0 = qi00 * r0 + qi01 * r1;
-    const T cb1 = qi01 * r0 + qi11 * r1;
-    // E[r r'] = P_{l+1} + Fn P_l Fn' - C Fn' - Fn C' + r r'
-    const T FP00 = Ps00 + T(2) * f01 * Ps01 + f01 * f01 * Ps11;
-    const T FP01 = f11 * (Ps01 + f01 * Ps11);
-    const T FP11 = f11 * f11 * Ps11;
-    const T CF00 = C00 + f01 * C01;
-    const T CF01 = f11 * C01;
-    const T CF10 = C10 + f01 * C11;
-    const T CF11 = f11 * C11;
-    const T E00 = Ps1_00 + FP00 - T(2) * CF00 + r0 * r0;
-    const T E01 = Ps1_01 + FP01 - CF01 - CF10 + r0 * r1;
-    const T E11 = Ps1_11 + FP11 - T(2) * CF11 + r1 * r1;
-    // Qbar = 0.5 (Qinv Errt Qinv - Qinv)
-    const T A00 = qi00 * E00 + qi01 * E01;
-    const T A01 = qi00 * E01 + qi01 * E11;
-    const T A10 = qi01 * E00 + qi11 * E01;
-    const T A11 = qi01 * E01 + qi11 * E11;
-    const T Qb00 = T(0.5) * ((A00 * qi00 + A01 * qi01) - qi00);
-    const T Qb01 = T(0.5) * ((A00 * qi01 + A01 * qi11) - qi01);
-    const T Qb11 = T(0.5) * ((A10 * qi01 + A11 * qi11) - qi11);
+    const Smooth9<T> nxt = acc;  // smoothed at l + 1
+    acc = Smooth9<T>::combine(acc, e);  // smoothed at l
+    const TransScore<T> sc = transition_score<T>(w, TVn, nxt, acc, G);
+    const T Fb01 = sc.Fb01, Fb11 = sc.Fb11, cb0 = sc.cb0, cb1 = sc.cb1;
+    const T Qb00 = sc.Qb00, Qb01 = sc.Qb01, Qb11 = sc.Qb11;
 
     // ---- par -> (F, Q, c) chain rule, all closed-form ----
     const T u = w.u, e1 = w.e1, m1 = w.m1;
@@ -159,10 +109,7 @@ __global__ void __launch_bounds__(128)
     const T mub = cb0 * w.bp + cb1 * w.bv;
 
     // obs + prior score at l (the reset prior uses p0_pos)
-    const T resid = y - ms0;
-    const T yb = U * (-resid / h) + R * (-resid / p0_pos);
-    const T Ey2 = resid * resid + Ps00;
-    ha = ha + U * (T(0.5) * Ey2 / (h * h) - T(0.5) / h);
+    const T yb = obs_score(y, acc, U, R, h, p0_pos, &ha);
 
     T* c = cot + (long long)l * kCotRows * lanes + t;
     c[0] = TVn * mub;

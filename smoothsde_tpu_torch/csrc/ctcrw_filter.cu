@@ -107,12 +107,7 @@ __global__ void __launch_bounds__(128)
     const StepRows<T> s = read_rows(stack, l, t, lanes);
     const ParTerms<T> w = entering_terms(s, pv);
     const Elem14<T> e = elem_from_vals(w, s.y, s.rst, s.upd, p0_pos, p0_vel, h);
-    // predictive llk term BEFORE absorbing step l
-    const T a_pred = c.b0 + w.f01 * c.b1 + w.c0;
-    const T Pp00 = c.C00 + T(2) * w.f01 * c.C01 + w.f01 * w.f01 * c.C11 + w.q00;
-    const T F = Pp00 + h;
-    const T u = s.y - a_pred;
-    acc = acc + s.upd * T(-0.5) * (d_log(F) + u * u / F);
+    acc = acc + pred_llk(c, w, s.y, s.upd, h);  // BEFORE absorbing step l
     c = Elem14<T>::combine(c, e);
     T* m = moments + (long long)l * kMomRows * lanes + t;
     m[0] = c.b0;

@@ -8,7 +8,8 @@ state-space branch, objective.py:556-571 of the JAX package):
 
 with par_matrix the (n, n_par) working-scale linear predictor built from
 the fixed-effect design blocks, and loglik the Kalman filter on the fused
-kernels: CTCRW through ops/kalman_soa.ctcrw_loglik_soa, BM_SSM / OU_SSM
+kernels: CTCRW through ops/kalman_soa.ctcrw_loglik_soa (scan="fused",
+analytic_grad=True, as the JAX package's CTCRW branch), BM_SSM / OU_SSM
 through ops/diag_fused.diag_ssm_loglik_fused. The slice is these models
 with formulas of intercepts and linear/factor terms, no random effects
 or smooths, no user H or P0, no mesh; everything else raises
@@ -195,7 +196,8 @@ def build_objective(
         sobs = torch.exp(full["log_sigma_obs"][0])
         if spec.type == "CTCRW":
             return -ctcrw_loglik_soa(
-                par_matrix(full), None, None, None, sigma_obs=sobs, data=data
+                par_matrix(full), None, None, None, sigma_obs=sobs,
+                scan="fused", analytic_grad=True, data=data,
             )
         return -diag_ssm_loglik_fused(
             spec.type, par_matrix(full), None, None, None, sigma_obs=sobs,

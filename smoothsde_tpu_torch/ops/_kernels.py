@@ -60,6 +60,18 @@ _SIGNATURES = {
     "diag_smooth_totals": "pppii",
     # stack, moments, suffix, h, p0, cot, hbar, L, lanes
     "diag_score_scan": "ppppdppii",
+    # CTCRW element-space kernels, csrc/elem_fused.cu
+    # stack, h, p0_pos, p0_vel, totals, L, lanes
+    "elem_filter_totals": "ppddpii",
+    # stack, prefix, h, p0_pos, p0_vel, moments, llk, L, lanes
+    "elem_filter_scan": "pppddppii",
+    # stack, moments, totals, L, lanes
+    "elem_smooth_totals": "pppii",
+    # stack, moments, suffix, h, p0_pos, cot, hbar, L, lanes
+    "elem_score_scan": "ppppdppii",
+    # phase-1 scan, csrc/phase1_scan.cu: in, out, L, lanes, reverse
+    "phase1_scan_filter": "ppiii",
+    "phase1_scan_smooth": "ppiii",
 }
 _CTYPES = {"p": ctypes.c_void_p, "d": ctypes.c_double, "i": ctypes.c_int}
 

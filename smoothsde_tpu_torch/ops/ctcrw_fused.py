@@ -23,18 +23,36 @@ The same stack serves the forward and the backward (the forward feeds
 each step the PREVIOUS slot's par, carried across steps and seeded per
 lane from the boundary rows `bd`; the backward feeds each slot its own).
 
-The five kernels, each with its plain PyTorch version here:
+The element-space path (the JAX package's `fused_filter` and
+`fused_backward`) reads the transition already built by
+`_ctcrw_system` instead of rebuilding it from par, in two stacks of the
+same lane layout:
 
-  filter_totals  (K1a)  block totals of the 14-comp filtering elements
-  block_prefix   (K2)   exclusive cross-block prefix (suffix if reverse)
-  filter_scan    (K1b)  prefix-seeded rescan: moments + llk partials
-  smooth_totals  (K3a)  block totals of the 9-comp smoothing elements
-  score_scan     (K3b)  suffix-seeded rescan: Fisher score cotangents
+    forward  (L, 10, lanes): f01 f11 q00 q01 q11 c0 c1 y rst upd
+             (the transition ENTERING slot i)
+    backward (L, 12, lanes): fn01 fn11 qn00 qn01 qn11 cn0 cn1 te tvn y
+             upd rst (the transition LEAVING slot i)
 
-A wrapper runs its plain version only for a tensor that lies on the
-CPU; for a CUDA tensor it launches its kernel (csrc/, built by
-ops/_kernels.py) or raises. Each wrapper counts its launches in
-`LAUNCHES`.
+padded with f11 = 1 (fn11 = 1) and zeros elsewhere, which makes identity
+filtering and smoothing elements.
+
+The kernels, each with its plain PyTorch version here:
+
+  filter_totals       (K1a)  block totals of the 14-comp filtering elements
+  block_prefix        (K2)   exclusive cross-block prefix (suffix if reverse)
+  filter_scan         (K1b)  prefix-seeded rescan: moments + llk partials
+  smooth_totals       (K3a)  block totals of the 9-comp smoothing elements
+  score_scan          (K3b)  suffix-seeded rescan: Fisher score cotangents
+  elem_filter_totals  (K4a)  K1a over the element-space forward stack
+  elem_filter_scan    (K4b)  K1b over the element-space forward stack
+  elem_smooth_totals  (K5a)  K3a over the element-space backward stack
+  elem_score_scan     (K5b)  K3b without the par chain rule: the 8
+                             element-space cotangent rows and h
+
+(K8, the generic phase-1 scan, lives in ops/scan_utils.py.) A wrapper
+runs its plain version only for a tensor that lies on the CPU; for a
+CUDA tensor it launches its kernel (csrc/, built by ops/_kernels.py) or
+raises. Each wrapper counts its launches in `LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -57,6 +75,8 @@ from smoothsde_tpu_torch.ops.kalman_soa import (
     Element2,
     _comb1,
     _combine2,
+    _shift,
+    _shift_back,
 )
 from smoothsde_tpu_torch.ops.stable import em1, phi, psi
 
@@ -73,6 +93,10 @@ _N_TOT = 14  # filtering element: A(4) b(2) C(3) eta(2) J(3)
 _N_SM = 9  # smoothing element: E(4) g(2) L(3)
 _N_MOM = 5  # filtered moments: m0, m1, P00, P01, P11
 _N_COT = 4  # cotangents: mu, log tau, log nu, y
+# element-space stacks (see the module docstring) and their padding
+_ELEM_FWD_PAD = (0.0, 1.0) + (0.0,) * 8
+_ELEM_BWD_PAD = (0.0, 1.0) + (0.0,) * 10
+_N_ECOT = 8  # cotangents: f01, f11, q00, q01, q11, c0, c1, y
 
 
 class Plan(NamedTuple):
@@ -112,6 +136,24 @@ def unstack(x, p: Plan):
     k = x.shape[1]
     x = x.reshape(p.L, k, p.d, p.NB).permute(1, 2, 3, 0)
     return x.reshape(k, p.d, p.NB * p.L)[:, :, : p.n]
+
+
+def pad_to_lanes(x, pad_vals, p: Plan):
+    """(k, d, n) -> (L, k, lanes), padded past n with pad_vals[i] in row
+    i."""
+    pad = p.NB * p.L - p.n
+    if pad:
+        fill = torch.tensor(pad_vals, dtype=x.dtype, device=x.device)
+        x = torch.cat([x, fill.view(-1, 1, 1).expand(x.shape[0], p.d, pad)],
+                      dim=-1)
+    return _to_lanes(x, p._replace(n=p.NB * p.L))
+
+
+def stack_rows(rows, pad_vals, p: Plan):
+    """(L, k, lanes) stack of rows, each (n,) or (d, n), padded past n
+    with pad_vals[i] in row i."""
+    return pad_to_lanes(torch.stack([r.expand(p.d, p.n) for r in rows]),
+                        pad_vals, p)
 
 
 def build_par_stack(mu, lt, ln, dtv, te, tvn, yd, upd, rst, p: Plan):
@@ -324,6 +366,92 @@ def _smooth_elem_vals(f01, f11, q00, q01, q11, c0, c1,
     return elem, (G00, G01, G10, G11)
 
 
+def _pred_llk(c: Element2, f01, c0, q00, y, U, hs):
+    """Predictive log-likelihood term of a step from the carry BEFORE the
+    step absorbs it (its filtered moments at the previous step) and the
+    entering transition; 0 unless U."""
+    a_pred = c.b[0] + f01 * c.b[1] + c0
+    Pp00 = c.C[0][0] + 2.0 * f01 * c.C[0][1] + f01 * f01 * c.C[1][1] + q00
+    F = Pp00 + hs
+    u = y - a_pred
+    return U * (-0.5) * (torch.log(F) + u * u / F)
+
+
+def _transition_score(f01, f11, q00, q01, q11, c0, c1, TVn, nxt: Smooth2,
+                      cur: Smooth2, G):
+    """Fisher-identity score of the transition LEAVING a step (rows
+    (1, f01), (0, f11) of F, Q, c), unmasked: (Fb01, Fb11, Qb00, Qb01,
+    Qb11, cb0, cb1). nxt / cur are the smoothing accumulators holding
+    the smoothed moments at the next step and at this one; G is the
+    unmasked RTS gain; TVn = 0 sanitizes Q where the transition has no
+    density (the caller masks the score with TVn)."""
+    ms1_0, ms1_1 = nxt.g
+    Ps1_00, Ps1_01 = nxt.L[0]
+    Ps1_11 = nxt.L[1][1]
+    ms0, ms1 = cur.g
+    Ps00, Ps01 = cur.L[0]
+    Ps11 = cur.L[1][1]
+    # sanitized Qn inverse
+    q00 = TVn * q00 + (1.0 - TVn)
+    q01 = TVn * q01
+    q11 = TVn * q11 + (1.0 - TVn)
+    det = q00 * q11 - q01 * q01
+    qi00 = q11 / det
+    qi01 = -q01 / det
+    qi11 = q00 / det
+
+    # lag-one Cov(x_{i+1}, x_i | y) = P_s_{i+1} G'
+    C00 = Ps1_00 * G[0] + Ps1_01 * G[1]
+    C01 = Ps1_00 * G[2] + Ps1_01 * G[3]
+    C10 = Ps1_01 * G[0] + Ps1_11 * G[1]
+    C11 = Ps1_01 * G[2] + Ps1_11 * G[3]
+    Exx01 = Ps01 + ms0 * ms1
+    Exx11 = Ps11 + ms1 * ms1
+    Ex2x01 = C01 + ms1_0 * ms1
+    Ex2x11 = C11 + ms1_1 * ms1
+    # r = m_{i+1} - Fn m_i - cn ; Fn rows (1, f01), (0, f11)
+    r0 = ms1_0 - (ms0 + f01 * ms1) - c0
+    r1 = ms1_1 - f11 * ms1 - c1
+
+    # Fbar = Qinv (Ex2x1 - Fn Exx - cn m_i'), second column
+    T01 = Ex2x01 - (Exx01 + f01 * Exx11) - c0 * ms1
+    T11 = Ex2x11 - f11 * Exx11 - c1 * ms1
+    Fb01 = qi00 * T01 + qi01 * T11
+    Fb11 = qi01 * T01 + qi11 * T11
+    # cbar = Qinv r
+    cb0 = qi00 * r0 + qi01 * r1
+    cb1 = qi01 * r0 + qi11 * r1
+    # E[r r'] = P_{i+1} + Fn P_i Fn' - C Fn' - Fn C' + r r'
+    FP00 = Ps00 + 2.0 * f01 * Ps01 + f01 * f01 * Ps11
+    FP01 = f11 * (Ps01 + f01 * Ps11)
+    FP11 = f11 * f11 * Ps11
+    CF00 = C00 + f01 * C01
+    CF01 = f11 * C01
+    CF10 = C10 + f01 * C11
+    CF11 = f11 * C11
+    E00 = Ps1_00 + FP00 - 2.0 * CF00 + r0 * r0
+    E01 = Ps1_01 + FP01 - CF01 - CF10 + r0 * r1
+    E11 = Ps1_11 + FP11 - 2.0 * CF11 + r1 * r1
+    # Qbar = 0.5 (Qinv Errt Qinv - Qinv)
+    A00 = qi00 * E00 + qi01 * E01
+    A01 = qi00 * E01 + qi01 * E11
+    A10 = qi01 * E00 + qi11 * E01
+    A11 = qi01 * E01 + qi11 * E11
+    Qb00 = 0.5 * ((A00 * qi00 + A01 * qi01) - qi00)
+    Qb01 = 0.5 * ((A00 * qi01 + A01 * qi11) - qi01)
+    Qb11 = 0.5 * ((A10 * qi01 + A11 * qi11) - qi11)
+    return Fb01, Fb11, Qb00, Qb01, Qb11, cb0, cb1
+
+
+def _obs_score(y, cur: Smooth2, U, R, hs, p0_pos):
+    """Observation + track-start prior score at a step from its smoothed
+    moments: (y cotangent, h score term)."""
+    resid = y - cur.g[0]
+    yb = U * (-resid / hs) + R * (-resid / p0_pos)
+    Ey2 = resid * resid + cur.L[0][0]
+    return yb, U * (0.5 * Ey2 / (hs * hs) - 0.5 / hs)
+
+
 def _step_elem(rows, pv, h, p0_pos, p0_vel):
     """(element, transition terms, new prev-par) for one step given its
     stack rows and the previous slot's par pv = (lt, ln, dt, mu, rst)."""
@@ -372,15 +500,8 @@ def filter_scan_plain(stack, bd, prefix, h, p0_pos, p0_vel):
     for l in range(L):
         rows = stack[l].unbind(0)
         e, w, pv = _step_elem(rows, pv, hs, p0_pos, p0_vel)
-        # predictive llk term BEFORE absorbing step l
-        a_pred = c.b[0] + w["f01"] * c.b[1] + w["c0"]
-        Pp00 = (
-            c.C[0][0] + 2.0 * w["f01"] * c.C[0][1]
-            + w["f01"] * w["f01"] * c.C[1][1] + w["q00"]
-        )
-        F = Pp00 + hs
-        u = rows[6] - a_pred
-        acc = acc + rows[7] * (-0.5) * (torch.log(F) + u * u / F)
+        acc = acc + _pred_llk(c, w["f01"], w["c0"], w["q00"], rows[6],
+                              rows[7], hs)
         c = _combine2(c, e)
         moments.append(torch.stack(
             [c.b[0], c.b[1], c.C[0][0], c.C[0][1], c.C[1][1]]
@@ -462,71 +583,18 @@ def score_scan_plain(stack, moments, suffix, h, p0_pos):
     cots = [None] * L
     for l in reversed(range(L)):
         lt, ln, dtv, mu, te, TVn, y, U, R = stack[l, :9].unbind(0)
-        # smoothed at i+1 is the incoming accumulator
-        ms1_0, ms1_1 = acc.g
-        Ps1_00, Ps1_01 = acc.L[0]
-        Ps1_11 = acc.L[1][1]
         w = _par_terms_vals(lt, ln, dtv, mu, R)
         m0, m1f, P00, P01, P11 = moments[l].unbind(0)
         e, G = _smooth_elem_vals(
             w["f01"], w["f11"], w["q00"], w["q01"], w["q11"],
             w["c0"], w["c1"], m0, m1f, P00, P01, P11, te,
         )
-        acc = _combine2_rev(acc, e)
-        ms0, ms1 = acc.g  # smoothed at i
-        Ps00, Ps01 = acc.L[0]
-        Ps11 = acc.L[1][1]
-
-        f01, f11, c0, c1 = w["f01"], w["f11"], w["c0"], w["c1"]
-        # sanitized Qn inverse
-        q00 = TVn * w["q00"] + (1.0 - TVn)
-        q01 = TVn * w["q01"]
-        q11 = TVn * w["q11"] + (1.0 - TVn)
-        det = q00 * q11 - q01 * q01
-        qi00 = q11 / det
-        qi01 = -q01 / det
-        qi11 = q00 / det
-
-        # lag-one Cov(x_{i+1}, x_i | y) = P_s_{i+1} G'
-        C00 = Ps1_00 * G[0] + Ps1_01 * G[1]
-        C01 = Ps1_00 * G[2] + Ps1_01 * G[3]
-        C10 = Ps1_01 * G[0] + Ps1_11 * G[1]
-        C11 = Ps1_01 * G[2] + Ps1_11 * G[3]
-        Exx01 = Ps01 + ms0 * ms1
-        Exx11 = Ps11 + ms1 * ms1
-        Ex2x01 = C01 + ms1_0 * ms1
-        Ex2x11 = C11 + ms1_1 * ms1
-        # r = m_{i+1} - Fn m_i - cn ; Fn rows (1, f01), (0, f11)
-        r0 = ms1_0 - (ms0 + f01 * ms1) - c0
-        r1 = ms1_1 - f11 * ms1 - c1
-
-        # Fbar = Qinv (Ex2x1 - Fn Exx - cn m_i'), second column
-        T01 = Ex2x01 - (Exx01 + f01 * Exx11) - c0 * ms1
-        T11 = Ex2x11 - f11 * Exx11 - c1 * ms1
-        Fb01 = qi00 * T01 + qi01 * T11
-        Fb11 = qi01 * T01 + qi11 * T11
-        # cbar = Qinv r
-        cb0 = qi00 * r0 + qi01 * r1
-        cb1 = qi01 * r0 + qi11 * r1
-        # E[r r'] = P_{i+1} + Fn P_i Fn' - C Fn' - Fn C' + r r'
-        FP00 = Ps00 + 2.0 * f01 * Ps01 + f01 * f01 * Ps11
-        FP01 = f11 * (Ps01 + f01 * Ps11)
-        FP11 = f11 * f11 * Ps11
-        CF00 = C00 + f01 * C01
-        CF01 = f11 * C01
-        CF10 = C10 + f01 * C11
-        CF11 = f11 * C11
-        E00 = Ps1_00 + FP00 - 2.0 * CF00 + r0 * r0
-        E01 = Ps1_01 + FP01 - CF01 - CF10 + r0 * r1
-        E11 = Ps1_11 + FP11 - 2.0 * CF11 + r1 * r1
-        # Qbar = 0.5 (Qinv Errt Qinv - Qinv)
-        A00 = qi00 * E00 + qi01 * E01
-        A01 = qi00 * E01 + qi01 * E11
-        A10 = qi01 * E00 + qi11 * E01
-        A11 = qi01 * E01 + qi11 * E11
-        Qb00 = 0.5 * ((A00 * qi00 + A01 * qi01) - qi00)
-        Qb01 = 0.5 * ((A00 * qi01 + A01 * qi11) - qi01)
-        Qb11 = 0.5 * ((A10 * qi01 + A11 * qi11) - qi11)
+        nxt = acc  # smoothed at i+1 is the incoming accumulator
+        acc = _combine2_rev(acc, e)  # smoothed at i
+        Fb01, Fb11, Qb00, Qb01, Qb11, cb0, cb1 = _transition_score(
+            w["f01"], w["f11"], w["q00"], w["q01"], w["q11"], w["c0"],
+            w["c1"], TVn, nxt, acc, G,
+        )
 
         # ---- par -> (F, Q, c) chain rule, all closed-form ----
         u, e1, m1 = w["u"], w["e1"], w["m1"]
@@ -547,12 +615,75 @@ def score_scan_plain(stack, moments, suffix, h, p0_pos):
                      + Qb11 * w["uq11"])
         mub = cb0 * w["bp"] + cb1 * w["bv"]
 
-        # obs + prior score at i
-        resid = y - ms0
-        yb = U * (-resid / hs) + R * (-resid / p0_pos)
-        Ey2 = resid * resid + Ps00
-        ha = ha + U * (0.5 * Ey2 / (hs * hs) - 0.5 / hs)
+        yb, h_term = _obs_score(y, acc, U, R, hs, p0_pos)
+        ha = ha + h_term
         cots[l] = torch.stack([TVn * mub, TVn * ltb, TVn * lnb, yb])
+    return torch.stack(cots), ha
+
+
+# ---- element-space plain versions (K4a, K4b, K5a, K5b) ----
+
+
+def elem_filter_totals_plain(stack, h, p0_pos, p0_vel):
+    """K4a: (14, lanes) composition of each lane's filtering elements,
+    read from the element-space forward stack."""
+    c = _unpack_elem_full(_identity(_ID_VALS, stack[0, 0]))
+    for l in range(stack.shape[0]):
+        c = _combine2(c, _elem_from_vals(*stack[l].unbind(0), p0_pos,
+                                         p0_vel, h[0]))
+    return torch.stack(_pack_elem(c))
+
+
+def elem_filter_scan_plain(stack, prefix, h, p0_pos, p0_vel):
+    """K4b: rescan seeded with each lane's exclusive prefix: filtered
+    moments (L, 5, lanes) and per-lane llk partials (lanes,)."""
+    c = _unpack_elem_full(prefix.unbind(0))
+    hs = h[0]
+    acc = torch.zeros_like(prefix[0])
+    moments = []
+    for l in range(stack.shape[0]):
+        rows = stack[l].unbind(0)
+        f01, _, q00, _, _, c0, _, y, _, U = rows
+        acc = acc + _pred_llk(c, f01, c0, q00, y, U, hs)
+        c = _combine2(c, _elem_from_vals(*rows, p0_pos, p0_vel, hs))
+        moments.append(torch.stack(
+            [c.b[0], c.b[1], c.C[0][0], c.C[0][1], c.C[1][1]]
+        ))
+    return torch.stack(moments), acc
+
+
+def elem_smooth_totals_plain(stack, moments):
+    """K5a: (9, lanes) reverse composition of each lane's smoothing
+    elements, read from the element-space backward stack."""
+    acc = _unpack_sm(_identity(_ID_SM, stack[0, 0]))
+    for l in reversed(range(stack.shape[0])):
+        e, _ = _smooth_elem_vals(*stack[l, :7].unbind(0),
+                                 *moments[l].unbind(0), stack[l, 7])
+        acc = _combine2_rev(acc, e)
+    return torch.stack(_pack_sm(acc))
+
+
+def elem_score_scan_plain(stack, moments, suffix, h, p0_pos):
+    """K5b: rescan in reverse time seeded with each lane's exclusive
+    suffix, emitting per slot the score of the transition LEAVING it and
+    of its observation, (L, 8, lanes) rows (f01, f11, q00, q01, q11, c0,
+    c1, y), and the per-lane h score partials (lanes,). The gbar scaling
+    and the shift to entering indexing happen outside."""
+    L = stack.shape[0]
+    hs = h[0]
+    acc = _unpack_sm(suffix.unbind(0))
+    ha = torch.zeros_like(suffix[0])
+    cots = [None] * L
+    for l in reversed(range(L)):
+        rows = stack[l].unbind(0)
+        trans, (te, TVn, y, U, R) = rows[:7], rows[7:]
+        e, G = _smooth_elem_vals(*trans, *moments[l].unbind(0), te)
+        nxt = acc
+        acc = _combine2_rev(acc, e)
+        score = _transition_score(*trans, TVn, nxt, acc, G)
+        yb, h_term = _obs_score(y, acc, U, R, hs, p0_pos)
+        ha = ha + h_term
+        cots[l] = torch.stack([TVn * s for s in score] + [yb])
     return torch.stack(cots), ha
 
 
@@ -575,6 +706,12 @@ LAUNCHES = {
     "diag_smooth_totals": 0,
     "block_prefix_diag_smooth": 0,
     "diag_score_scan": 0,
+    "elem_filter_totals": 0,
+    "elem_filter_scan": 0,
+    "elem_smooth_totals": 0,
+    "elem_score_scan": 0,
+    "phase1_scan_filter": 0,
+    "phase1_scan_smooth": 0,
 }
 
 
@@ -585,7 +722,9 @@ def reset_launches():
 
 def _on_cuda(*ts) -> bool:
     """True for CUDA tensors, False for CPU tensors; raises on anything
-    else or on mixed devices/dtypes."""
+    else, on mixed devices/dtypes, or when a CUDA input needs a gradient
+    (the kernels are forward-only: their gradients come from the
+    Fisher-identity backwards, never from autograd through a launch)."""
     dev, dt = ts[0].device, ts[0].dtype
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"kernel inputs must be float32/float64, got {dt}")
@@ -601,6 +740,11 @@ def _on_cuda(*ts) -> bool:
         return False
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            "the CUDA kernels are forward-only: differentiate through an "
+            "analytic-gradient core (analytic_grad=True) instead"
+        )
     return True
 
 
@@ -617,18 +761,35 @@ def _check_stack(stack, bd=None, moments=None, rows_min=_PAR_ROWS):
     return L, lanes
 
 
+def _check_rows(stack, rows, moments=None, mom_rows=_N_MOM):
+    """(L, lanes) of a stack of exactly `rows` rows, and of its moments
+    (L, mom_rows, lanes) if given; raises on any other shape."""
+    L, k, lanes = stack.shape
+    if k != rows:
+        raise ValueError(f"stack has {k} rows, needs {rows}")
+    want = (L, mom_rows, lanes)
+    if moments is not None and tuple(moments.shape) != want:
+        raise ValueError(f"moments shape {tuple(moments.shape)} != {want}")
+    return L, lanes
+
+
+def _launch(name, *args):
+    """Launch kernel `name` (ops/_kernels.py) and count it."""
+    from smoothsde_tpu_torch.ops import _kernels
+
+    _kernels.launch(name, *args)
+    LAUNCHES[name] += 1
+
+
 def filter_totals(stack, bd, h, p0_pos, p0_vel):
     """K1a wrapper; see filter_totals_plain."""
     if not _on_cuda(stack, bd, h):
         return filter_totals_plain(stack, bd, h, p0_pos, p0_vel)
-    from smoothsde_tpu_torch.ops import _kernels
-
     L, lanes = _check_stack(stack, bd)
     totals = torch.empty((_N_TOT, lanes), dtype=stack.dtype,
                          device=stack.device)
-    _kernels.launch("ctcrw_filter_totals", stack, bd, h, float(p0_pos),
-                    float(p0_vel), totals, L, lanes)
-    LAUNCHES["ctcrw_filter_totals"] += 1
+    _launch("ctcrw_filter_totals", stack, bd, h, float(p0_pos),
+            float(p0_vel), totals, L, lanes)
     return totals
 
 
@@ -636,17 +797,14 @@ def filter_scan(stack, bd, prefix, h, p0_pos, p0_vel):
     """K1b wrapper; see filter_scan_plain."""
     if not _on_cuda(stack, bd, prefix, h):
         return filter_scan_plain(stack, bd, prefix, h, p0_pos, p0_vel)
-    from smoothsde_tpu_torch.ops import _kernels
-
     L, lanes = _check_stack(stack, bd)
     if tuple(prefix.shape) != (_N_TOT, lanes):
         raise ValueError(f"prefix shape {tuple(prefix.shape)}")
     moments = torch.empty((L, _N_MOM, lanes), dtype=stack.dtype,
                           device=stack.device)
     llk = torch.empty((lanes,), dtype=stack.dtype, device=stack.device)
-    _kernels.launch("ctcrw_filter_scan", stack, bd, prefix, h,
-                    float(p0_pos), float(p0_vel), moments, llk, L, lanes)
-    LAUNCHES["ctcrw_filter_scan"] += 1
+    _launch("ctcrw_filter_scan", stack, bd, prefix, h, float(p0_pos),
+            float(p0_vel), moments, llk, L, lanes)
     return moments, llk
 
 
@@ -656,15 +814,12 @@ def block_prefix(totals, d, elem, reverse):
     (5-comp, `_comb1`) or "diag_smooth" (3-comp, `_comb1_rev`)."""
     if not _on_cuda(totals):
         return block_prefix_plain(totals, d, elem, reverse)
-    from smoothsde_tpu_torch.ops import _kernels
-
     C, lanes = totals.shape
     if C != len(ELEMS[elem].id_vals) or lanes % d:
         raise ValueError(f"totals shape {tuple(totals.shape)} for {elem}")
     out = torch.empty_like(totals)
     name = f"block_prefix_{elem}"
-    _kernels.launch(name, totals, out, d, lanes // d, int(bool(reverse)))
-    LAUNCHES[name] += 1
+    _launch(name, totals, out, d, lanes // d, int(bool(reverse)))
     return out
 
 
@@ -672,14 +827,11 @@ def smooth_totals(stack, moments):
     """K3a wrapper; see smooth_totals_plain."""
     if not _on_cuda(stack, moments):
         return smooth_totals_plain(stack, moments)
-    from smoothsde_tpu_torch.ops import _kernels
-
     L, lanes = _check_stack(stack, moments=moments, rows_min=9)
     totals = torch.empty((_N_SM, lanes), dtype=stack.dtype,
                          device=stack.device)
-    _kernels.launch("ctcrw_smooth_totals", stack, moments, totals,
-                    stack.shape[1], L, lanes)
-    LAUNCHES["ctcrw_smooth_totals"] += 1
+    _launch("ctcrw_smooth_totals", stack, moments, totals, stack.shape[1],
+            L, lanes)
     return totals
 
 
@@ -687,17 +839,63 @@ def score_scan(stack, moments, suffix, h, p0_pos):
     """K3b wrapper; see score_scan_plain."""
     if not _on_cuda(stack, moments, suffix, h):
         return score_scan_plain(stack, moments, suffix, h, p0_pos)
-    from smoothsde_tpu_torch.ops import _kernels
-
     L, lanes = _check_stack(stack, moments=moments, rows_min=9)
     if tuple(suffix.shape) != (_N_SM, lanes):
         raise ValueError(f"suffix shape {tuple(suffix.shape)}")
     cot = torch.empty((L, _N_COT, lanes), dtype=stack.dtype,
                       device=stack.device)
     hbar = torch.empty((lanes,), dtype=stack.dtype, device=stack.device)
-    _kernels.launch("ctcrw_score_scan", stack, moments, suffix, h,
-                    float(p0_pos), cot, hbar, stack.shape[1], L, lanes)
-    LAUNCHES["ctcrw_score_scan"] += 1
+    _launch("ctcrw_score_scan", stack, moments, suffix, h, float(p0_pos),
+            cot, hbar, stack.shape[1], L, lanes)
+    return cot, hbar
+
+
+def elem_filter_totals(stack, h, p0_pos, p0_vel):
+    """K4a wrapper; see elem_filter_totals_plain."""
+    if not _on_cuda(stack, h):
+        return elem_filter_totals_plain(stack, h, p0_pos, p0_vel)
+    L, lanes = _check_rows(stack, len(_ELEM_FWD_PAD))
+    totals = stack.new_empty((_N_TOT, lanes))
+    _launch("elem_filter_totals", stack, h, float(p0_pos), float(p0_vel),
+            totals, L, lanes)
+    return totals
+
+
+def elem_filter_scan(stack, prefix, h, p0_pos, p0_vel):
+    """K4b wrapper; see elem_filter_scan_plain."""
+    if not _on_cuda(stack, prefix, h):
+        return elem_filter_scan_plain(stack, prefix, h, p0_pos, p0_vel)
+    L, lanes = _check_rows(stack, len(_ELEM_FWD_PAD))
+    if tuple(prefix.shape) != (_N_TOT, lanes):
+        raise ValueError(f"prefix shape {tuple(prefix.shape)}")
+    moments = stack.new_empty((L, _N_MOM, lanes))
+    llk = stack.new_empty((lanes,))
+    _launch("elem_filter_scan", stack, prefix, h, float(p0_pos),
+            float(p0_vel), moments, llk, L, lanes)
+    return moments, llk
+
+
+def elem_smooth_totals(stack, moments):
+    """K5a wrapper; see elem_smooth_totals_plain."""
+    if not _on_cuda(stack, moments):
+        return elem_smooth_totals_plain(stack, moments)
+    L, lanes = _check_rows(stack, len(_ELEM_BWD_PAD), moments)
+    totals = stack.new_empty((_N_SM, lanes))
+    _launch("elem_smooth_totals", stack, moments, totals, L, lanes)
+    return totals
+
+
+def elem_score_scan(stack, moments, suffix, h, p0_pos):
+    """K5b wrapper; see elem_score_scan_plain."""
+    if not _on_cuda(stack, moments, suffix, h):
+        return elem_score_scan_plain(stack, moments, suffix, h, p0_pos)
+    L, lanes = _check_rows(stack, len(_ELEM_BWD_PAD), moments)
+    if tuple(suffix.shape) != (_N_SM, lanes):
+        raise ValueError(f"suffix shape {tuple(suffix.shape)}")
+    cot = stack.new_empty((L, _N_ECOT, lanes))
+    hbar = stack.new_empty((lanes,))
+    _launch("elem_score_scan", stack, moments, suffix, h, float(p0_pos), cot,
+            hbar, L, lanes)
     return cot, hbar
 
 
@@ -715,6 +913,14 @@ OPS = {
     "plain": KernelOps(filter_totals_plain, block_prefix_plain,
                        filter_scan_plain, smooth_totals_plain,
                        score_scan_plain),
+}
+# the element-space path (K4a, K2, K4b forward; K5a, K2, K5b backward)
+ELEM_OPS = {
+    "kernels": KernelOps(elem_filter_totals, block_prefix, elem_filter_scan,
+                         elem_smooth_totals, elem_score_scan),
+    "plain": KernelOps(elem_filter_totals_plain, block_prefix_plain,
+                       elem_filter_scan_plain, elem_smooth_totals_plain,
+                       elem_score_scan_plain),
 }
 
 
@@ -747,5 +953,87 @@ def fused_backward_par(stack, moments, h, gbar, p: Plan, p0_pos,
         gbar * c_lt.sum(0),
         gbar * c_ln.sum(0),
         gbar * c_y,
+        gbar * hbar_lanes.sum(),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Element-space forward filter and backward score over a CtcrwSystem
+# ---------------------------------------------------------------------------
+
+
+def elem_forward_stack(sys, p: Plan):
+    """(L, 10, lanes) element-space forward stack of a CtcrwSystem: the
+    ENTERING transition's F[0][1], F[1][1], Q and c (F[0][0] = 1 and
+    F[1][0] = 0 by construction), y and the reset / update masks."""
+    dt = sys.yd.dtype
+    Ft, ct, Qt = sys.Ft, sys.ct, sys.Qt
+    return stack_rows([
+        Ft[0][1], Ft[1][1], Qt[0][0], Qt[0][1], Qt[1][1], ct[0], ct[1],
+        sys.yd, sys.reset.to(dt), sys.update.to(dt),
+    ], _ELEM_FWD_PAD, p)
+
+
+def elem_backward_stack(sys, p: Plan):
+    """(L, 12, lanes) element-space backward stack of a CtcrwSystem, as
+    the JAX package's `fused_backward` builds it: the transition LEAVING
+    each slot (shifted back: 0 at the end, 1 for f11), the track end te
+    (1 at the end), tvn (the leaving transition has a density), y and the
+    update / reset masks."""
+    dt = sys.yd.dtype
+    Ft, ct, Qt = sys.Ft, sys.ct, sys.Qt
+    rf = sys.reset.to(dt)
+    tv = (~sys.reset & ~sys.prev_reset).to(dt)
+    return stack_rows([
+        _shift_back(Ft[0][1]), _shift_back(Ft[1][1], 1.0),
+        _shift_back(Qt[0][0]), _shift_back(Qt[0][1]), _shift_back(Qt[1][1]),
+        _shift_back(ct[0]), _shift_back(ct[1]),
+        _shift_back(rf, 1.0), _shift_back(tv), sys.yd, sys.update.to(dt), rf,
+    ], _ELEM_BWD_PAD, p)
+
+
+def fused_filter(sys, ops: KernelOps = ELEM_OPS["kernels"]):
+    """Element-space fused forward filter of a CtcrwSystem (the JAX
+    package's `fused_filter` with tiled moments): (llk, filtered moments
+    (L, 5, lanes) in the stack layout of plan(d, n), rows m0, m1, P00,
+    P01, P11)."""
+    d, n = sys.yd.shape
+    stack = elem_forward_stack(sys, plan(d, n))
+    h1 = sys.h.reshape(1).contiguous()
+    totals = ops.filter_totals(stack, h1, sys.p0_pos, sys.p0_vel)
+    prefix = ops.block_prefix(totals, d, "filter", False)
+    moments, llk_lanes = ops.filter_scan(stack, prefix, h1, sys.p0_pos,
+                                         sys.p0_vel)
+    return llk_lanes.sum(), moments
+
+
+def fused_backward(sys, moments, gbar, ops: KernelOps = ELEM_OPS["kernels"]):
+    """Element-space fused smoother + score: cotangents (Ftbar, ctbar,
+    Qtbar, ybar, hbar) of a CtcrwSystem's (Ft, ct, Qt, yd, h), given the
+    filtered moments of fused_filter, scaled by gbar. Every leaf is
+    (d, n) in ENTERING indexing (the caller sums over the dims of a
+    shared primal); Ft[0][0] and Ft[1][0] get zeros, and Qt[0][1],
+    Qt[1][0] the same symmetric score, as in the JAX package.
+
+    The backward stack holds the transition LEAVING each slot, so the
+    kernel's score at slot i belongs to the transition entering i+1 and
+    is shifted forward here. Padding makes identity smoothing elements:
+    Fn = I and Qn = 0 with the real filter states the forward leaves in
+    the padded moment slots give G = I, g = 0, L = 0."""
+    d, n = sys.yd.shape
+    p = plan(d, n)
+    stack = elem_backward_stack(sys, p)
+    h1 = sys.h.reshape(1).contiguous()
+    totals = ops.smooth_totals(stack, moments)
+    suffix = ops.block_prefix(totals, d, "smooth", True)
+    cot, hbar_lanes = ops.score_scan(stack, moments, suffix, h1, sys.p0_pos)
+    c = unstack(cot, p)
+    f01, f11, q00, q01, q11, c0, c1 = (gbar * _shift(x) for x in c[:7])
+    zero = torch.zeros_like(sys.yd)
+    return (
+        ((zero, f01), (zero, f11)),
+        (c0, c1),
+        ((q00, q01), (q01, q11)),
+        gbar * c[7],
         gbar * hbar_lanes.sum(),
     )

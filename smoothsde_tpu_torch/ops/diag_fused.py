@@ -49,7 +49,13 @@ import torch
 
 from smoothsde_tpu_torch.ops import ctcrw_fused as cf
 from smoothsde_tpu_torch.ops.kalman_smooth import _ID1_SM, _comb1_rev
-from smoothsde_tpu_torch.ops.kalman_soa import _ID1, _comb1, precompute_dt
+from smoothsde_tpu_torch.ops.kalman_soa import (
+    _ID1,
+    _comb1,
+    _shift,
+    _shift_back,
+    precompute_dt,
+)
 from smoothsde_tpu_torch.ops.stable import ou_transition_terms
 
 P0 = 10.0  # prior variance at a track start (R/sde.R:554)
@@ -60,18 +66,6 @@ _N_TOT = 5
 _N_SM = 3
 _N_MOM = 2
 _N_COT = 4  # t, q, c, y
-
-
-def _shift(x, fill=0.0):
-    """x[..., i-1] at i, `fill` at 0."""
-    pad = torch.full(x.shape[:-1] + (1,), fill, dtype=x.dtype, device=x.device)
-    return torch.cat([pad, x[..., :-1]], dim=-1)
-
-
-def _shift_back(x, fill=0.0):
-    """x[..., i+1] at i, `fill` at the end."""
-    pad = torch.full(x.shape[:-1] + (1,), fill, dtype=x.dtype, device=x.device)
-    return torch.cat([x[..., 1:], pad], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -280,20 +274,8 @@ def diag_llk_from_filtered(sysd: DiagSystem, bf, Cf):
 # ---------------------------------------------------------------------------
 
 
-def _stack_rows(rows, pad_vals, p: cf.Plan):
-    """(L, k, lanes) stack of rows, each (n,) or (d, n), padded past n
-    with pad_vals[i] in row i."""
-    x = torch.stack([r.expand(p.d, p.n) for r in rows])
-    pad = p.NB * p.L - p.n
-    if pad:
-        fill = torch.tensor(pad_vals, dtype=x.dtype, device=x.device)
-        x = torch.cat([x, fill.view(-1, 1, 1).expand(len(rows), p.d, pad)],
-                      dim=-1)
-    return cf._to_lanes(x, p._replace(n=p.NB * p.L))
-
-
 def forward_stack(t, q, c, yd, resetf, updatef, p: cf.Plan):
-    return _stack_rows([t, q, c, yd, resetf, updatef], _FWD_PAD, p)
+    return cf.stack_rows([t, q, c, yd, resetf, updatef], _FWD_PAD, p)
 
 
 def backward_stack(t, q, c, yd, resetf, updatef, p: cf.Plan):
@@ -307,7 +289,7 @@ def backward_stack(t, q, c, yd, resetf, updatef, p: cf.Plan):
         _shift_back(t, 1.0), _shift_back(q), _shift_back(c),
         _shift_back(resetf, 1.0), _shift_back(tv), yd, updatef, resetf,
     ]
-    return _stack_rows(rows, _BWD_PAD, p)
+    return cf.stack_rows(rows, _BWD_PAD, p)
 
 
 # ---------------------------------------------------------------------------
@@ -402,31 +384,13 @@ def diag_score_scan_plain(stack, moments, suffix, h, p0):
 # ---------------------------------------------------------------------------
 
 
-def _check_stack(stack, rows, moments=None):
-    L, k, lanes = stack.shape
-    if k != rows:
-        raise ValueError(f"stack has {k} rows, needs {rows}")
-    if moments is not None and tuple(moments.shape) != (L, _N_MOM, lanes):
-        raise ValueError(
-            f"moments shape {tuple(moments.shape)} != {(L, _N_MOM, lanes)}"
-        )
-    return L, lanes
-
-
-def _launch(name, *args):
-    from smoothsde_tpu_torch.ops import _kernels
-
-    _kernels.launch(name, *args)
-    cf.LAUNCHES[name] += 1
-
-
 def diag_filter_totals(stack, h, p0):
     """D1a wrapper; see diag_filter_totals_plain."""
     if not cf._on_cuda(stack, h):
         return diag_filter_totals_plain(stack, h, p0)
-    L, lanes = _check_stack(stack, len(_FWD_PAD))
+    L, lanes = cf._check_rows(stack, len(_FWD_PAD))
     totals = stack.new_empty((_N_TOT, lanes))
-    _launch("diag_filter_totals", stack, h, float(p0), totals, L, lanes)
+    cf._launch("diag_filter_totals", stack, h, float(p0), totals, L, lanes)
     return totals
 
 
@@ -434,13 +398,13 @@ def diag_filter_scan(stack, prefix, h, p0):
     """D1b wrapper; see diag_filter_scan_plain."""
     if not cf._on_cuda(stack, prefix, h):
         return diag_filter_scan_plain(stack, prefix, h, p0)
-    L, lanes = _check_stack(stack, len(_FWD_PAD))
+    L, lanes = cf._check_rows(stack, len(_FWD_PAD))
     if tuple(prefix.shape) != (_N_TOT, lanes):
         raise ValueError(f"prefix shape {tuple(prefix.shape)}")
     moments = stack.new_empty((L, _N_MOM, lanes))
     llk = stack.new_empty((lanes,))
-    _launch("diag_filter_scan", stack, prefix, h, float(p0), moments, llk,
-            L, lanes)
+    cf._launch("diag_filter_scan", stack, prefix, h, float(p0), moments,
+               llk, L, lanes)
     return moments, llk
 
 
@@ -448,9 +412,9 @@ def diag_smooth_totals(stack, moments):
     """D3a wrapper; see diag_smooth_totals_plain."""
     if not cf._on_cuda(stack, moments):
         return diag_smooth_totals_plain(stack, moments)
-    L, lanes = _check_stack(stack, len(_BWD_PAD), moments)
+    L, lanes = cf._check_rows(stack, len(_BWD_PAD), moments, _N_MOM)
     totals = stack.new_empty((_N_SM, lanes))
-    _launch("diag_smooth_totals", stack, moments, totals, L, lanes)
+    cf._launch("diag_smooth_totals", stack, moments, totals, L, lanes)
     return totals
 
 
@@ -458,13 +422,13 @@ def diag_score_scan(stack, moments, suffix, h, p0):
     """D3b wrapper; see diag_score_scan_plain."""
     if not cf._on_cuda(stack, moments, suffix, h):
         return diag_score_scan_plain(stack, moments, suffix, h, p0)
-    L, lanes = _check_stack(stack, len(_BWD_PAD), moments)
+    L, lanes = cf._check_rows(stack, len(_BWD_PAD), moments, _N_MOM)
     if tuple(suffix.shape) != (_N_SM, lanes):
         raise ValueError(f"suffix shape {tuple(suffix.shape)}")
     cot = stack.new_empty((L, _N_COT, lanes))
     hbar = stack.new_empty((lanes,))
-    _launch("diag_score_scan", stack, moments, suffix, h, float(p0), cot,
-            hbar, L, lanes)
+    cf._launch("diag_score_scan", stack, moments, suffix, h, float(p0),
+               cot, hbar, L, lanes)
     return cot, hbar
 
 

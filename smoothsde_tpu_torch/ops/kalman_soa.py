@@ -6,12 +6,19 @@ Port of smoothsde_tpu/ops/kalman_soa.py for the CTCRW slice:
     associative combine `_combine2` (every matrix component is its own
     tensor over the step/lane axis, so a combine is elementwise);
   - `precompute_dt`, the host-side f64 inter-observation intervals;
-  - `ctcrw_loglik_soa`, the CTCRW log-likelihood whose value comes from
-    the fused forward kernels and whose gradient comes from the fused
-    Fisher-identity backward kernels (ops/ctcrw_fused.py), wrapped as
-    `CtcrwFusedCore`, a torch.autograd.Function at the same
-    (par_mat, yd, h, dtv, resetf, validf) boundary as the JAX
-    package's `_fused_par_core`;
+  - the element-space system: `CtcrwSystem` / `_ctcrw_system` (the
+    transition ENTERING each step and the filtering elements),
+    `_build_elem2`, `_llk_from_filtered`, and the scan dispatch
+    `_scan_elements` ("blocked" and "pallas" go through
+    ops/scan_utils.py's `blocked_associative_scan`);
+  - `ctcrw_loglik_soa`, the CTCRW log-likelihood with the JAX package's
+    `scan` / `analytic_grad` dispatch. The fit's route (scan="fused",
+    analytic_grad=True) takes its value from the fused par-space forward
+    kernels and its gradient from the fused Fisher-identity backward
+    kernels (ops/ctcrw_fused.py), wrapped as `CtcrwFusedCore`, a
+    torch.autograd.Function at the same (par_mat, yd, h, dtv, resetf,
+    validf) boundary as the JAX package's `_fused_par_core`; the other
+    analytic routes go through `llk2_analytic` (ops/kalman_smooth.py);
   - `ctcrw_loglik_sequential`, a plain step-by-step filter
     differentiated by autograd, an independent oracle for the tests;
   - the scalar-state filtering combine `_comb1` (BM_SSM / OU_SSM, whose
@@ -142,6 +149,78 @@ def _comb1(e1, e2):
 _ID1 = (1.0, 0.0, 0.0, 0.0, 0.0)
 
 
+def _wh(cond, X, Y):
+    """torch.where over matching nested tuples (broadcasting)."""
+    if isinstance(X, tuple):
+        return tuple(_wh(cond, x, y) for x, y in zip(X, Y))
+    return torch.where(cond, X, Y)
+
+
+def _shift(x, fill=0.0):
+    """x[..., i-1] at slot i, `fill` at 0."""
+    pad = torch.full(x.shape[:-1] + (1,), fill, dtype=x.dtype, device=x.device)
+    return torch.cat([pad, x[..., :-1]], dim=-1)
+
+
+def _shift_back(x, fill=0.0):
+    """x[..., i+1] at slot i, `fill` at the end."""
+    pad = torch.full(x.shape[:-1] + (1,), fill, dtype=x.dtype, device=x.device)
+    return torch.cat([x[..., 1:], pad], dim=-1)
+
+
+def _scan_elements(combine, identity, elem, scan: str, reverse=False):
+    """Inclusive scan of `elem` (leaves (..., n)) along the last axis.
+
+    scan: "blocked" (the block decomposition of ops/scan_utils.py with
+    its plain phase 1), "pallas" (the same with the phase-1 kernel K8 for
+    CUDA tensors), "auto" ("pallas" on a CUDA device, "blocked" on the
+    CPU: the fast blocked scan of the device, as in the JAX package),
+    "sequential" (one combine per step, a Python loop) or "associative"
+    (Hillis-Steele over all n steps, plain torch). "fused" scans as
+    "associative", as the JAX package's fallthrough does. reverse=True
+    scans from the last step to the first (the smoother's order, the
+    JAX package's flip / scan / flip). `combine` must be one of the
+    element combines ops/ctcrw_fused.py's ELEMS knows."""
+    from smoothsde_tpu_torch.ops import scan_utils
+
+    if scan == "auto":
+        leaf = scan_utils.elem_kind(combine).pack(elem)[0]
+        scan = "pallas" if leaf.is_cuda else "blocked"
+    if scan in ("blocked", "pallas"):
+        return scan_utils.blocked_associative_scan(
+            combine, identity, elem,
+            phase1="plain" if scan == "blocked" else "pallas",
+            reverse=reverse,
+        )
+    if scan not in ("sequential", "associative", "fused"):
+        raise ValueError(f"unknown scan {scan!r}")
+    kind = scan_utils.elem_kind(combine)
+    leaves = kind.pack(elem)
+    shape = torch.broadcast_shapes(*(x.shape for x in leaves))
+    xs = [x.expand(shape) for x in leaves]
+    if reverse:
+        xs = [x.flip(-1) for x in xs]
+    ids = kind.pack(identity)
+    if scan == "sequential":
+        carry = kind.unpack([x.new_full(shape[:-1], v) for x, v in
+                             zip(xs, ids)])
+        outs = []
+        for i in range(shape[-1]):
+            carry = combine(carry, kind.unpack([x[..., i] for x in xs]))
+            outs.append(kind.pack(carry))
+        xs = [torch.stack(c, dim=-1) for c in zip(*outs)]
+    else:  # Hillis-Steele: x_i <- x_{i-k} (+) x_i, k = 1, 2, 4, ...
+        k = 1
+        while k < shape[-1]:
+            sh = [torch.cat([x.new_full(shape[:-1] + (k,), v), x[..., :-k]],
+                            dim=-1) for x, v in zip(xs, ids)]
+            xs = kind.pack(combine(kind.unpack(sh), kind.unpack(xs)))
+            k *= 2
+    if reverse:
+        xs = [x.flip(-1) for x in xs]
+    return kind.unpack(xs)
+
+
 def precompute_dt(times, ids):
     """Host-side f64 inter-observation intervals with cross-track
     sanitization (dt = 1 across ID breaks and at the dummy last slot).
@@ -186,6 +265,154 @@ def prepare_ctcrw_data(obs, times, ids, *, dtype, device):
         resetf=dev(reset),
         validf=dev(valid),
     )
+
+
+class CtcrwSystem(NamedTuple):
+    """Per-step SoA system pieces for the s=2 filter (all leaves end in
+    the step axis): the transition ENTERING each step, Ft and Qt (n,)
+    (shared by the response dims), ct (d, n); observations yd (d, n); h
+    0-d; bool masks (n,) reset, prev_reset, update; the filtering
+    elements (leaves (d, n)); the prior variances at track starts."""
+
+    Ft: tuple
+    ct: tuple
+    Qt: tuple
+    yd: torch.Tensor
+    h: torch.Tensor
+    reset: torch.Tensor
+    prev_reset: torch.Tensor
+    update: torch.Tensor
+    elem: Element2
+    p0_pos: float
+    p0_vel: float
+
+
+def _ctcrw_system(par_mat, obs, times, ids, sigma_obs, p0_pos=1.0,
+                  p0_vel=10.0, dt=None, yd=None, h=None, reset=None,
+                  valid=None) -> CtcrwSystem:
+    """The per-step SoA system and filtering elements from par_mat
+    (n, d+2) on the working scale (shared by the likelihood, the smoother
+    and the analytic-gradient core), as the JAX package's `_ctcrw_system`.
+
+    dt defaults to the host f64 intervals (precompute_dt). `yd` (d, n),
+    `h` (0-d), `reset` and `valid` (bool (n,)) override what would be
+    derived from obs / sigma_obs / ids; with all of dt, yd, reset and
+    valid given, obs/times/ids may be None. (The JAX package's
+    `pre_shifted` / `prev_reset`, which only time sharding needs, are not
+    ported.)"""
+    dtype, device = par_mat.dtype, par_mat.device
+
+    def dev(x):
+        return torch.as_tensor(np.asarray(x, np.float64)).to(
+            device=device, dtype=dtype
+        )
+
+    if dt is None:
+        dt = dev(precompute_dt(times, ids))
+    if reset is None:
+        i = np.asarray(ids)
+        reset = torch.as_tensor(np.concatenate([[True], i[1:] != i[:-1]]),
+                                device=device)
+    if valid is None:
+        valid = torch.as_tensor(
+            np.isfinite(np.asarray(obs, np.float64)[:, 0]), device=device
+        )
+    if yd is None:
+        yd = dev(np.nan_to_num(np.asarray(obs, np.float64), nan=0.0).T)
+    if h is None:
+        h = torch.as_tensor(sigma_obs, dtype=dtype, device=device) ** 2
+    d = yd.shape[0]
+
+    from smoothsde_tpu_torch.ops.stable import ctcrw_transition_terms
+
+    mu = par_mat[:, :d]
+    tau = torch.exp(par_mat[:, d])
+    nu = torch.exp(par_mat[:, d + 1])
+    beta = 1.0 / tau
+    sigma2 = 4.0 * nu * nu / (math.pi * tau)
+    tt = ctcrw_transition_terms(beta, sigma2, dt)
+    bp = tt["bp"][None, :] * mu.T  # (d, n) position drift
+    bv = tt["bv"][None, :] * mu.T  # velocity drift
+
+    # shift to "transition entering step i"; identity out of a reset
+    prev_reset = torch.cat([reset.new_ones(1), reset[:-1]])
+    q01 = torch.where(prev_reset, 0.0, _shift(tt["q01"]))
+    Ft = (
+        (torch.ones_like(dt), torch.where(prev_reset, 0.0, _shift(tt["g"]))),
+        (torch.zeros_like(dt),
+         torch.where(prev_reset, 1.0, _shift(tt["e1"], 1.0))),
+    )
+    Qt = (
+        (torch.where(prev_reset, 0.0, _shift(tt["q00"])), q01),
+        (q01, torch.where(prev_reset, 0.0, _shift(tt["q11"]))),
+    )
+    ct = (torch.where(prev_reset, 0.0, _shift(bp)),
+          torch.where(prev_reset, 0.0, _shift(bv)))
+    update = valid & ~reset
+    return CtcrwSystem(
+        Ft=Ft, ct=ct, Qt=Qt, yd=yd, h=h, reset=reset,
+        prev_reset=prev_reset, update=update,
+        elem=_build_elem2(Ft, ct, Qt, yd, h, reset, update, p0_pos, p0_vel),
+        p0_pos=float(p0_pos), p0_vel=float(p0_vel),
+    )
+
+
+def _build_elem2(Ft, ct, Qt, yd, h, reset, update, p0_pos, p0_vel):
+    """Filtering elements (leaves (d, n)) from the system pieces: the
+    three-way select between reset, measurement update (Z = [1, 0],
+    scalar S) and propagate-only."""
+    S = Qt[0][0] + h
+    K0 = Qt[0][0] / S
+    K1 = Qt[1][0] / S
+    r = yd - ct[0]
+    A_upd = (
+        ((1.0 - K0) * Ft[0][0], (1.0 - K0) * Ft[0][1]),
+        (Ft[1][0] - K1 * Ft[0][0], Ft[1][1] - K1 * Ft[0][1]),
+    )
+    b_upd = (ct[0] + K0 * r, ct[1] + K1 * r)
+    C_upd = (
+        ((1.0 - K0) * Qt[0][0], (1.0 - K0) * Qt[0][1]),
+        (Qt[1][0] - K1 * Qt[0][0], Qt[1][1] - K1 * Qt[0][1]),
+    )
+    f0, f1 = Ft[0][0], Ft[0][1]
+    eta_upd = (f0 * r / S, f1 * r / S)
+    J_upd = ((f0 * f0 / S, f0 * f1 / S), (f0 * f1 / S, f1 * f1 / S))
+
+    zero = torch.zeros_like(yd)
+    zz = ((zero, zero), (zero, zero))
+    upd_only = update & ~reset
+    return Element2(
+        A=_wh(reset, zz, _wh(update, A_upd, Ft)),
+        b=_wh(reset, (yd, zero), _wh(update, b_upd, ct)),
+        C=_wh(
+            reset,
+            ((torch.full_like(yd, p0_pos), zero),
+             (zero, torch.full_like(yd, p0_vel))),
+            _wh(update, C_upd, Qt),
+        ),
+        eta=_wh(upd_only, eta_upd, (zero, zero)),
+        J=_wh(upd_only, J_upd, zz),
+    )
+
+
+def _llk_from_filtered(sys: CtcrwSystem, m_f, P_f):
+    """Predictive log-likelihood recovered elementwise from the filtered
+    moments m_f (2-tuple), P_f (2x2 tuple), leaves (d, n)."""
+    Ft, ct, Qt, yd, h = sys.Ft, sys.ct, sys.Qt, sys.yd, sys.h
+    m0p, m1p = _shift(m_f[0]), _shift(m_f[1])
+    P00p, P01p, P11p = _shift(P_f[0][0]), _shift(P_f[0][1]), _shift(P_f[1][1])
+    a_pred0 = Ft[0][0] * m0p + Ft[0][1] * m1p + ct[0]
+    Pp00 = (
+        Ft[0][0] * (Ft[0][0] * P00p + Ft[0][1] * P01p)
+        + Ft[0][1] * (Ft[0][0] * P01p + Ft[0][1] * P11p)
+        + Qt[0][0]
+    )
+    a_pred0 = torch.where(sys.reset, yd, a_pred0)
+    Pp00 = torch.where(sys.reset, sys.p0_pos, Pp00)
+    F = Pp00 + h
+    u = yd - a_pred0
+    return torch.where(sys.update, -0.5 * (torch.log(F) + u * u / F),
+                       0.0).sum()
 
 
 def _make_core(ops_name: str):
@@ -248,27 +475,55 @@ CtcrwPlainCore = _make_core("plain")
 
 
 def ctcrw_loglik_soa(par_mat, obs, times, ids, sigma_obs, p0_pos=1.0,
-                     p0_vel=10.0, data: CtcrwData = None):
-    """Total CTCRW log-likelihood through the fused kernels.
+                     p0_vel=10.0, scan: str = "auto",
+                     analytic_grad: bool = False, data: CtcrwData = None):
+    """Total CTCRW log-likelihood.
 
     par_mat: (n, d+2) working scale (mu_1..mu_d, log tau, log nu) on the
     working device; obs: (n, d) with NaN missing rows (first-response
     check, as in the reference); sigma_obs: scalar measurement SD (a
     tensor to differentiate through it). Pass `data` (prepare_ctcrw_data)
     to skip rebuilding the per-step data; obs/times/ids are then unused.
-    Differentiable in par_mat and sigma_obs (reverse mode)."""
-    if data is None:
-        data = prepare_ctcrw_data(
-            obs, times, ids, dtype=par_mat.dtype, device=par_mat.device
+
+    Dispatch as in the JAX package:
+      - scan="fused", analytic_grad=True: the fit's route, the fused
+        par-space kernels with the Fisher-identity gradient
+        (`CtcrwFusedCore`);
+      - analytic_grad=True otherwise: `llk2_analytic(sys, scan)`, the
+        element-space Fisher-identity autograd.Function;
+      - scan="fused": the element-space fused forward (K4a, K2, K4b);
+      - any other scan: `_scan_elements` + `_llk_from_filtered`.
+    Differentiable in par_mat and sigma_obs (reverse mode). On a CUDA
+    device the kernels are forward-only, so a gradient needs
+    analytic_grad=True."""
+    if analytic_grad and scan == "fused":
+        if data is None:
+            data = prepare_ctcrw_data(
+                obs, times, ids, dtype=par_mat.dtype, device=par_mat.device
+            )
+        h = torch.as_tensor(
+            sigma_obs, dtype=par_mat.dtype, device=par_mat.device
+        ) ** 2
+        return CtcrwFusedCore.apply(
+            par_mat, data.yd, h, data.dtv, data.resetf, data.validf,
+            float(p0_pos), float(p0_vel),
         )
-    sigma_obs = torch.as_tensor(
-        sigma_obs, dtype=par_mat.dtype, device=par_mat.device
-    )
-    h = sigma_obs * sigma_obs
-    return CtcrwFusedCore.apply(
-        par_mat, data.yd, h, data.dtv, data.resetf, data.validf,
-        float(p0_pos), float(p0_vel),
-    )
+    over = {}
+    if data is not None:
+        over = dict(dt=data.dtv, yd=data.yd, reset=data.resetf > 0.5,
+                    valid=data.validf > 0.5)
+    sys = _ctcrw_system(par_mat, obs, times, ids, sigma_obs, p0_pos, p0_vel,
+                        **over)
+    if analytic_grad:
+        from smoothsde_tpu_torch.ops.kalman_smooth import llk2_analytic
+
+        return llk2_analytic(sys, scan)
+    if scan == "fused":
+        from smoothsde_tpu_torch.ops.ctcrw_fused import fused_filter
+
+        return fused_filter(sys)[0]
+    scanned = _scan_elements(_combine2, _ID2, sys.elem, scan)
+    return _llk_from_filtered(sys, scanned.b, scanned.C)
 
 
 def ctcrw_loglik_sequential(par_mat, obs, times, ids, sigma_obs,
@@ -298,20 +553,15 @@ def ctcrw_loglik_sequential(par_mat, obs, times, ids, sigma_obs,
     tt = ctcrw_transition_terms(beta, sigma2, data.dtv)
     h = torch.as_tensor(sigma_obs, dtype=dtype, device=device) ** 2
 
-    def shift(x, fill=0.0):
-        pad = torch.full(x.shape[:-1] + (1,), fill, dtype=dtype,
-                         device=device)
-        return torch.cat([pad, x[..., :-1]], dim=-1)
-
     zero = torch.zeros_like(yd)
     np_ = prev_reset  # identity transition out of a reset
-    f01 = torch.where(np_, 0.0, shift(tt["g"]))
-    f11 = torch.where(np_, 1.0, shift(tt["e1"], 1.0))
-    q00 = torch.where(np_, 0.0, shift(tt["q00"]))
-    q01 = torch.where(np_, 0.0, shift(tt["q01"]))
-    q11 = torch.where(np_, 0.0, shift(tt["q11"]))
-    c0 = torch.where(np_, 0.0, shift(tt["bp"][None, :] * mu))
-    c1 = torch.where(np_, 0.0, shift(tt["bv"][None, :] * mu))
+    f01 = torch.where(np_, 0.0, _shift(tt["g"]))
+    f11 = torch.where(np_, 1.0, _shift(tt["e1"], 1.0))
+    q00 = torch.where(np_, 0.0, _shift(tt["q00"]))
+    q01 = torch.where(np_, 0.0, _shift(tt["q01"]))
+    q11 = torch.where(np_, 0.0, _shift(tt["q11"]))
+    c0 = torch.where(np_, 0.0, _shift(tt["bp"][None, :] * mu))
+    c1 = torch.where(np_, 0.0, _shift(tt["bv"][None, :] * mu))
 
     from smoothsde_tpu_torch.ops.ctcrw_fused import (
         _ID_VALS,
@@ -342,8 +592,8 @@ def ctcrw_loglik_sequential(par_mat, obs, times, ids, sigma_obs,
     )
 
     # predictive likelihood from the filtered moments at i - 1
-    m0p, m1p = shift(m0), shift(m1)
-    P00p, P01p, P11p = shift(P00), shift(P01), shift(P11)
+    m0p, m1p = _shift(m0), _shift(m1)
+    P00p, P01p, P11p = _shift(P00), _shift(P01), _shift(P11)
     a_pred0 = m0p + f01 * m1p + c0
     Pp00 = P00p + 2.0 * f01 * P01p + f01 * f01 * P11p + q00
     a_pred0 = torch.where(reset, yd, a_pred0)

@@ -1,6 +1,7 @@
 """PyTorch port vs JAX package: CTCRW log-likelihood and its gradient.
 
-The port's `ctcrw_loglik_soa` (the autograd.Function over the fused
+The port's `ctcrw_loglik_soa(scan="fused", analytic_grad=True)` (the
+fit's route: the autograd.Function over the fused par-space
 forward/backward; on CPU tensors every kernel wrapper runs its plain
 version) against JAX `ctcrw_loglik_soa(scan="sequential")` and
 `jax.grad`, as tests/test_kalman.py checks the JAX fused path: multi-
@@ -63,7 +64,8 @@ def _jax_value_grad(obs, times, ids, par, sobs):
 def _port_value_grad(obs, times, ids, par, sobs):
     p = torch.tensor(par, requires_grad=True)
     s = torch.tensor(sobs, dtype=torch.float64, requires_grad=True)
-    v = ctcrw_loglik_soa(p, obs, times, ids, s)
+    v = ctcrw_loglik_soa(p, obs, times, ids, s, scan="fused",
+                         analytic_grad=True)
     v.backward()
     return float(v.detach()), p.grad.numpy(), float(s.grad)
 

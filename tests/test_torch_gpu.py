@@ -1,6 +1,7 @@
 """CUDA kernels of smoothsde_tpu_torch against their plain PyTorch
-versions on the card: the CTCRW kernels and the scalar-state (BM_SSM /
-OU_SSM) ones, and the launcher's argument checks. Every test that needs
+versions on the card: the CTCRW kernels (par-space and element-space),
+the phase-1 scan K8, the scalar-state (BM_SSM / OU_SSM) ones, and the
+launcher's argument checks. Every test that needs
 the card is marked `gpu` and skips without a CUDA device. This file
 imports neither jax nor the JAX package, so it also runs where jax is
 not installed:
@@ -14,9 +15,16 @@ import torch
 
 from smoothsde_tpu_torch.ops import ctcrw_fused as cf
 from smoothsde_tpu_torch.ops import diag_fused as df
+from smoothsde_tpu_torch.ops import scan_utils as su
+from smoothsde_tpu_torch.ops.kalman_smooth import (
+    ctcrw_smoothed_states,
+    llk2_analytic,
+)
 from smoothsde_tpu_torch.ops.kalman_soa import (
     CtcrwFusedCore,
     CtcrwPlainCore,
+    _ctcrw_system,
+    ctcrw_loglik_soa,
     prepare_ctcrw_data,
 )
 
@@ -27,6 +35,13 @@ CTCRW_KERNELS = ("ctcrw_filter_totals", "block_prefix_filter",
 DIAG_KERNELS = ("diag_filter_totals", "block_prefix_diag_filter",
                 "diag_filter_scan", "diag_smooth_totals",
                 "block_prefix_diag_smooth", "diag_score_scan")
+# the kernels of llk2_analytic (value + gradient) per scan
+ELEM_PATH = {
+    "fused": ("elem_filter_totals", "block_prefix_filter", "elem_filter_scan",
+              "elem_smooth_totals", "block_prefix_smooth", "elem_score_scan"),
+    "pallas": ("phase1_scan_filter", "block_prefix_filter",
+               "phase1_scan_smooth", "block_prefix_smooth"),
+}
 
 
 @pytest.fixture
@@ -198,3 +213,129 @@ def test_diag_f32_kernels_within_accuracy_bar(cuda, typ):
     g, rg = g.sum(0), rg.sum(0)
     assert v == pytest.approx(rv, rel=1e-4)
     assert np.max(np.abs(g - rg)) <= 1e-4 * np.max(np.abs(rg))
+
+
+def _flat(out):
+    if isinstance(out, tuple):
+        return torch.cat([o.reshape(-1) for o in out])
+    return out.reshape(-1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,n", [(1, 80), (2, 5000), (3, 20001)])
+def test_elem_and_phase1_kernels_match_plain_f64(cuda, d, n):
+    """K4a, K4b, K5a, K5b and K8 (filtering and smoothing elements, both
+    directions) each against its plain version on the card, f64: max abs
+    error within 1e-12 of the output's scale, 1e-7 for K5b, whose score
+    rows carry Qinv E Qinv (the JAX package's form): roundoff in E, a
+    difference of covariance terms, grows by 1/q^2 where a short interval
+    makes Q small (dt down to 0.05 here; 1.2e-8 measured on an H100)."""
+    obs, times, ids, par = _data(d, n, 30 + d)
+    sys = _ctcrw_system(torch.tensor(par, device=cuda), obs, times, ids, 0.2)
+    p = cf.plan(d, n)
+    fst, bst = cf.elem_forward_stack(sys, p), cf.elem_backward_stack(sys, p)
+    h1 = sys.h.reshape(1)
+    ops_k, ops_p = cf.ELEM_OPS["kernels"], cf.ELEM_OPS["plain"]
+    tot = ops_k.filter_totals(fst, h1, 1.0, 10.0)
+    pre = ops_k.block_prefix(tot, d, "filter", False)
+    mom, _ = ops_k.filter_scan(fst, pre, h1, 1.0, 10.0)
+    stot = ops_k.smooth_totals(bst, mom)
+    suf = ops_k.block_prefix(stot, d, "smooth", True)
+    rng = np.random.default_rng(d)
+    sm = torch.tensor(rng.normal(scale=0.5, size=(p.L, 9, p.lanes)),
+                      device=cuda)
+    el = cf.pad_to_lanes(torch.stack(cf._pack_elem(sys.elem)),
+                         cf._ID_VALS, p)
+    calls = {
+        "K4a": lambda o: o.filter_totals(fst, h1, 1.0, 10.0),
+        "K4b": lambda o: o.filter_scan(fst, pre, h1, 1.0, 10.0),
+        "K5a": lambda o: o.smooth_totals(bst, mom),
+        "K5b": lambda o: o.score_scan(bst, mom, suf, h1, 1.0),
+    }
+    pairs = [(k, fn(ops_k), fn(ops_p)) for k, fn in calls.items()]
+    for elem, x in (("filter", el), ("smooth", sm)):
+        for rev in (False, True):
+            pairs.append((f"K8 {elem} reverse={rev}",
+                          su.pallas_phase1_scan(x, elem, rev),
+                          su.pallas_phase1_scan_plain(x, elem, rev)))
+    errs = {}
+    for name, got, ref in pairs:
+        got, ref = _flat(got), _flat(ref)
+        assert bool(torch.isfinite(got).all()), name
+        scale = max(1.0, float(ref.abs().max()))
+        errs[name] = float((got - ref).abs().max()) / scale
+    bad = {k: e for k, e in errs.items()
+           if e > (1e-7 if k == "K5b" else 1e-12)}
+    assert not bad, errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scan", ["fused", "pallas"])
+@pytest.mark.parametrize("d,n", [(1, 80), (2, 5000), (3, 20001)])
+def test_llk2_analytic_matches_par_space_f64(cuda, d, n, scan):
+    """llk2_analytic through the element-space kernels (value + gradient
+    in par and sigma_obs) against the par-space plain core, f64: value
+    rtol 1e-10, gradient 1e-8 of the largest component; each kernel of
+    the path launched once, and no other."""
+    obs, times, ids, par = _data(d, n, 40 + d)
+    p = torch.tensor(par, device=cuda, requires_grad=True)
+    s = torch.tensor(0.2, dtype=torch.float64, device=cuda,
+                     requires_grad=True)
+    cf.reset_launches()
+    v = llk2_analytic(_ctcrw_system(p, obs, times, ids, s), scan)
+    v.backward()
+    want = {k: int(k in ELEM_PATH[scan]) for k in cf.LAUNCHES}
+    assert cf.LAUNCHES == want, cf.LAUNCHES
+    rv, rg, rgh = _value_grad(CtcrwPlainCore, obs, times, ids, par,
+                              torch.float64, cuda)
+    g = p.grad.cpu().numpy()
+    # d/d sigma_obs = 2 sigma_obs d/dh
+    assert v.item() == pytest.approx(rv, rel=1e-10)
+    np.testing.assert_allclose(g, rg, rtol=1e-8,
+                               atol=1e-8 * np.max(np.abs(rg)))
+    assert s.grad.item() == pytest.approx(2 * 0.2 * rgh, rel=1e-8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scan", ["fused", "pallas"])
+def test_llk2_analytic_f32_within_accuracy_bar(cuda, scan):
+    """f32 kernels vs the f64 plain version: value within 1e-4 relative,
+    the per-column gradient within 1e-4 of its largest component."""
+    obs, times, ids, par = _data(2, 50000, 9)
+    p = torch.tensor(par, dtype=torch.float32, device=cuda,
+                     requires_grad=True)
+    v = llk2_analytic(_ctcrw_system(p, obs, times, ids, 0.2), scan)
+    v.backward()
+    rv, rg, _ = _value_grad(CtcrwPlainCore, obs, times, ids, par,
+                            torch.float64, cuda)
+    g, rg = p.grad.double().cpu().numpy().sum(0), rg.sum(0)
+    assert v.item() == pytest.approx(rv, rel=1e-4)
+    assert np.max(np.abs(g - rg)) <= 1e-4 * np.max(np.abs(rg))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,n", [(1, 80), (2, 5000)])
+def test_smoothed_states_kernels_match_plain_f64(cuda, d, n):
+    """scan="auto" on the card runs K8 (both element types) and K2; it
+    agrees with the plain Hillis-Steele scan to 1e-10 of the scale."""
+    obs, times, ids, par = _data(d, n, 50 + d)
+    pt = torch.tensor(par, device=cuda)
+    cf.reset_launches()
+    got = ctcrw_smoothed_states(pt, obs, times, ids, 0.2)
+    want = {k: int(k in ELEM_PATH["pallas"]) for k in cf.LAUNCHES}
+    assert cf.LAUNCHES == want, cf.LAUNCHES
+    ref = ctcrw_smoothed_states(pt, obs, times, ids, 0.2, scan="associative")
+    for a, b in zip(got, ref):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-10 * scale
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_autograd(cuda):
+    """The kernels are forward-only: an autograd path through a launch
+    raises instead of returning a gradient-less value."""
+    obs, times, ids, par = _data(1, 200, 3)
+    p = torch.tensor(par, device=cuda, requires_grad=True)
+    for scan in ("fused", "pallas"):
+        with pytest.raises(RuntimeError, match="forward-only"):
+            ctcrw_loglik_soa(p, obs, times, ids, 0.2, scan=scan)

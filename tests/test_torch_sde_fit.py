@@ -5,9 +5,12 @@ Two tracks (n = 400), NaN rows, irregular steps, intercept formulas plus
 a linear covariate on tau; f64, the port on the CPU (plain versions of
 the kernels). Optimum parameters within 1e-4 absolute, nllk within 1e-8
 relative, `cov_fixed` within 1e-3 relative, and `from_reference`
-reproduces the JAX `joint_nllk` at the JAX optimum to 1e-10.
+reproduces the JAX `joint_nllk` at the JAX optimum to 1e-10;
+`smoothed_states()` at the same parameters agrees with the JAX
+package's to 1e-10.
 """
 
+import dataclasses
 import warnings
 
 import jax
@@ -109,3 +112,35 @@ def test_cuda_request_without_card_raises():
     data = _simulate(n_per=(30,))
     with pytest.raises(RuntimeError, match="cuda"):
         SDE(data=data, type="CTCRW", response=["y1", "y2"])
+
+
+def test_smoothed_states_match_jax(fits):
+    """At the JAX optimum (the port's fit result carrying the JAX
+    estimates): means and covariances to 1e-10 of their scale, through
+    the port's scan="auto" (the plain blocked scan on the CPU)."""
+    js, jr, ps, pr = fits
+    jm, jc = js.smoothed_states()
+    ps._fit_result = dataclasses.replace(pr, par=np.asarray(jr.par))
+    try:
+        means, covs = ps.smoothed_states()
+    finally:
+        ps._fit_result = pr
+    assert means.shape == jm.shape == (2, 400, 2)
+    assert covs.shape == jc.shape == (2, 400, 2, 2)
+    for got, want in ((means, jm), (covs, jc)):
+        scale = np.max(np.abs(want))
+        np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-10 * scale)
+    own_means, _ = ps.smoothed_states()  # at the port's own optimum
+    assert np.max(np.abs(own_means - jm)) < 1e-2
+
+
+def test_smoothed_states_outside_ctcrw_raise():
+    data = _simulate(n_per=(30,))
+    sde = SDE(data=data, type="CTCRW", response=["y1", "y2"], device="cpu",
+              dtype=torch.float64)
+    with pytest.raises(RuntimeError, match="Fit model first"):
+        sde.smoothed_states()
+    bm = SDE(data={"ID": data["ID"], "time": data["time"], "y": data["y1"]},
+             type="BM_SSM", response="y", device="cpu", dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="CTCRW"):
+        bm.smoothed_states()
