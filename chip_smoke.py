@@ -20,6 +20,12 @@ non-zero before the final line:
      K5b) and scan="pallas" (K8 and K2 in both directions), each kernel
      of the path launched at every shape; and for the scalar-state
      BM_SSM and OU_SSM kernels through DiagFusedCore / DiagPlainCore;
+     2b. the cross-block prefix K2 alone against its plain version: all
+     four element kinds in both directions, d in {1, 2, 3}, NB around its
+     256-block tile (1, 255, 256, 257, 773) and 31,250; f64 within 1e-10
+     and f32 (against the f64 plain version) within 1e-5 of the output's
+     scale; then its time at the diag fits' shapes (d = 2 and d = 1,
+     NB = 31,250);
   3. the CTCRW slice at full size: a 1M-step 2-D CTCRW (dt = 0.1,
      tau = 3, nu = 1, sigma_obs = 0.1, seed 5), simulated here with
      NumPy, fitted by `SDE(..., device="cuda").fit()` in f32; requires
@@ -44,6 +50,12 @@ non-zero before the final line:
      the par-space CtcrwFusedCore in f64 (value 1e-10, gradient 1e-8 of
      its largest component over the two points), every element-space
      kernel and K8 launched;
+     3e. f32 accuracy at the JAX package's own audit point
+     (tools/accuracy_audit.py's data, regenerated: 1M steps, theta =
+     (0.05, -0.02, log 2, 0)): `ctcrw_loglik_soa(scan="fused",
+     analytic_grad=True)` in f32 against its plain version in f64 on the
+     card, nllk (1e-4 relative) and gradient (1e-4 of |nllk|) gated, the
+     per-component errors printed beside docs/ACCURACY.md's TPU figures;
   4. each kernel against its plain version at its fit's shapes (the
      diag kernels at both the OU_SSM and the BM_SSM fit's, the
      element-space kernels and K8 at config 5a's; f64, max abs error
@@ -56,7 +68,10 @@ non-zero before the final line:
      from zero.
 
 The line before last is the card as nvidia-smi reports it, the one
-before that a JSON object {"kernels": [...]}, and the last line
+before that a JSON object {"kernels": [...]} (per kernel: launches on its
+main path, f64 error against the plain version, ms and plain_ms from CUDA
+events, device_ms from the profiler, bytes and bound_us / bound_ms /
+bound_by from `bound`, library_ms null), and the last line
 {"ok": true, "device": {...}}. It imports nothing of JAX.
 """
 
@@ -122,6 +137,34 @@ ELEM_PATH = {
 }
 KERNELS = CTCRW_KERNELS + DIAG_KERNELS + ELEM_KERNELS
 P0_DIAG = 10.0
+# What each kernel's function must move and compute, counted from
+# csrc/ (each source's head note): values per lane-step (stack rows and
+# moments read, moments or cotangents written), values per lane (boundary
+# rows, totals, prefixes read or written, llk / h partials), and flops per
+# lane-step and per lane (approximate: a 14-comp combine ~150, a 9-comp
+# ~50, a 5-comp ~15, a 3-comp ~5, plus the element and score algebra).
+TRAFFIC = {
+    "ctcrw_filter_totals": (8, 19, 210, 0),
+    "block_prefix_filter": (0, 28, 0, 150),
+    "ctcrw_filter_scan": (13, 20, 230, 0),
+    "ctcrw_smooth_totals": (11, 9, 100, 0),
+    "block_prefix_smooth": (0, 18, 0, 50),
+    "ctcrw_score_scan": (18, 10, 300, 0),
+    "diag_filter_totals": (6, 5, 25, 0),
+    "block_prefix_diag_filter": (0, 10, 0, 15),
+    "diag_filter_scan": (8, 6, 35, 0),
+    "diag_smooth_totals": (6, 3, 12, 0),
+    "block_prefix_diag_smooth": (0, 6, 0, 5),
+    "diag_score_scan": (14, 4, 60, 0),
+    "elem_filter_totals": (10, 14, 180, 0),
+    "elem_filter_scan": (15, 15, 200, 0),
+    "elem_smooth_totals": (13, 9, 100, 0),
+    "elem_score_scan": (25, 10, 250, 0),
+    "phase1_scan_filter": (28, 0, 150, 0),
+    "phase1_scan_smooth": (18, 0, 50, 0),
+}
+# H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s, f32 flop/s
+HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 
 
 class SmokeFailure(Exception):
@@ -352,13 +395,14 @@ def wall_ms(fn, reps, warm):
 
 
 def kernel_of(key):
-    """KERNELS name of a profiler kernel key: K8 and K2 by their element
-    type (the template argument), the per-lane kernels by name, diag and
-    elem first (the CTCRW names are substrings of theirs)."""
+    """KERNELS name of a profiler kernel key: K8 and K2 (its three
+    kernels together) by their element type (the template argument), the
+    per-lane kernels by name, diag and elem first (the CTCRW names are
+    substrings of theirs)."""
     if "phase1_scan_kernel" in key:
         return ("phase1_scan_filter" if "Elem14" in key
                 else "phase1_scan_smooth" if "Smooth9" in key else None)
-    if "block_prefix_kernel" in key:
+    if "block_prefix_" in key:  # K2's reduce, carry and rescan kernels
         for elem, name in (("Elem14", "block_prefix_filter"),
                            ("Smooth9", "block_prefix_smooth"),
                            ("Elem5", "block_prefix_diag_filter"),
@@ -409,6 +453,23 @@ def profile_device_ms(fn, reps, torch):
         log(f"    {us:9.1f} us  x{count:3d}  {key}")
     return ({k: v / 1e3 / reps for k, v in per_kernel.items()},
             busy_us / 1e3 / reps, wall_ms / reps)
+
+
+def bound(name, p, itemsize):
+    """The least time the card could take for kernel `name`'s function
+    at plan p: the larger of its bytes (each input read once, each output
+    written once) over the HBM rate and its flops over the f32 peak. No
+    single PyTorch call computes these non-commutative scans of 3-14
+    component elements, so library_ms is None for every kernel."""
+    per_step, per_lane, fl_step, fl_lane = TRAFFIC[name]
+    lane_steps = p.L * p.lanes
+    nbytes = itemsize * (per_step * lane_steps + per_lane * p.lanes)
+    t_bytes = nbytes / HBM_BPS
+    t_ops = (fl_step * lane_steps + fl_lane * p.lanes) / F32_FLOPS
+    t = max(t_bytes, t_ops)
+    return {"bytes": nbytes, "bound_us": t * 1e6, "bound_ms": t * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
 
 
 def flat(out, torch):
@@ -463,6 +524,176 @@ def phase_kernels_vs_plain(torch, variants, prepare, n_extra=2):
                 ", ".join(f"{tag} {abs(r[0] - v64) / abs(v64):.2e}"
                           for tag, r in res.items() if tag != "ref"))
     return worst
+
+
+K2_KINDS = [(kind, rev) for kind in ("filter", "smooth", "diag_filter",
+                                     "diag_smooth") for rev in (False, True)]
+# each K2 instantiation's scan direction on the fits' paths
+K2_PATH = {"block_prefix_filter": ("filter", False),
+           "block_prefix_smooth": ("smooth", True),
+           "block_prefix_diag_filter": ("diag_filter", False),
+           "block_prefix_diag_smooth": ("diag_smooth", True)}
+
+
+def k2_totals(torch):
+    """Real per-block totals of the four element kinds, f64 on the card:
+    the plain K1a / K3a / D1a / D3a chains over two_track_data (d = 2,
+    2,048 lanes)."""
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+    from smoothsde_tpu_torch.ops import diag_fused as df
+    from smoothsde_tpu_torch.ops.kalman_soa import prepare_ctcrw_data
+
+    dev = torch.device("cuda")
+    n = 32 * 1024
+    obs, times, ids, par = two_track_data(2, n, seed=60)
+    data = prepare_ctcrw_data(obs, times, ids, dtype=torch.float64,
+                              device=dev)
+    p = cf.plan(2, n)
+    pt = torch.tensor(par, device=dev)
+    stack, bd = cf.par_stack_from_data(pt, data.yd, data.dtv, data.resetf,
+                                       data.validf, p)
+    h = torch.tensor([0.01], dtype=torch.float64, device=dev)
+    ftot = cf.filter_totals_plain(stack, bd, h, P0_POS, P0_VEL)
+    pre = cf.block_prefix_plain(ftot, 2, "filter", False)
+    mom, _ = cf.filter_scan_plain(stack, bd, pre, h, P0_POS, P0_VEL)
+    sysd = df.diag_system("OU_SSM", pt, obs, times, ids, 0.1)
+    rows = (sysd.t, sysd.q, sysd.c, sysd.yd, sysd.resetf, sysd.updatef, p)
+    fwd = df.forward_stack(*rows)
+    dtot = df.diag_filter_totals_plain(fwd, h, P0_DIAG)
+    dpre = cf.block_prefix_plain(dtot, 2, "diag_filter", False)
+    dmom, _ = df.diag_filter_scan_plain(fwd, dpre, h, P0_DIAG)
+    return {"filter": ftot, "smooth": cf.smooth_totals_plain(stack, mom),
+            "diag_filter": dtot,
+            "diag_smooth": df.diag_smooth_totals_plain(
+                df.backward_stack(*rows), dmom)}
+
+
+def cycled(tot, d, nb, torch):
+    """(C, d * nb) real totals: the lanes of `tot`, cycled with stride 5."""
+    idx = torch.from_numpy((5 * np.arange(d * nb)) % tot.shape[1])
+    return tot[:, idx.to(tot.device)].contiguous()
+
+
+def phase_k2(torch):
+    """Phase 2b: K2 alone against its plain version on the card, every
+    element kind in both directions, d in {1, 2, 3}, NB around its tile
+    (1, T - 1, T, T + 1, 3T + 5) and config 5a's 31,250: f64 within 1e-10
+    of the output's scale, f32 against the f64 plain version within 1e-5.
+    Then each instantiation's time, in its direction on the fits' paths,
+    at the OU_SSM fit's (d = 2) and BM_SSM fit's (d = 1) NB = 31,250, f32:
+    CUDA events per wrapper call and profiler device time. Returns
+    {K2 name: measurements}."""
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+
+    tots = k2_totals(torch)
+    T = cf.PREFIX_TILE
+    worst = {}
+    for kind, reverse in K2_KINDS:
+        for d in (1, 2, 3):
+            for nb in (1, T - 1, T, T + 1, 3 * T + 5, 31_250):
+                tot = cycled(tots[kind], d, nb, torch)
+                ref = cf.block_prefix_plain(tot, d, kind, reverse)
+                got = cf.block_prefix(tot, d, kind, reverse)
+                got32 = cf.block_prefix(tot.float(), d, kind, reverse)
+                scale = max(1.0, float(ref.abs().max()))
+                where = f"K2 {kind} reverse={reverse} d={d} NB={nb}"
+                check(bool(torch.isfinite(got).all())
+                      and bool(torch.isfinite(got32).all()),
+                      f"{where}: non-finite")
+                e64 = float((got - ref).abs().max()) / scale
+                e32 = float((got32.double() - ref).abs().max()) / scale
+                check(e64 <= 1e-10, f"{where}: f64 vs plain {e64:.3e}")
+                check(e32 <= 1e-5, f"{where}: f32 vs f64 plain {e32:.3e}")
+                w = worst.setdefault(f"{kind} reverse={reverse}",
+                                     {"f64": 0.0, "f32": 0.0})
+                w["f64"], w["f32"] = max(w["f64"], e64), max(w["f32"], e32)
+    log(f"[2b] worst error over the output's scale: {json.dumps(worst)}")
+    out = {name: {"k2_max_rel_err_f64": worst[f"{k} reverse={r}"]["f64"],
+                  "k2_max_rel_err_f32": worst[f"{k} reverse={r}"]["f32"]}
+           for name, (k, r) in K2_PATH.items()}
+    for label, d in (("ou_ssm_shape", 2), ("bm_ssm_shape", 1)):
+        xs = {name: cycled(tots[k], d, 31_250, torch).float()
+              for name, (k, _) in K2_PATH.items()}
+
+        def all_k2(d=d, xs=xs):
+            for name, (k, r) in K2_PATH.items():
+                cf.block_prefix(xs[name], d, k, r)
+
+        dev_ms, _, _ = profile_device_ms(all_k2, 10, torch)
+        for name, (k, r) in K2_PATH.items():
+            out[name][f"ms_{label}"] = cuda_ms(
+                partial(cf.block_prefix, xs[name], d, k, r), 50, 3, torch)
+            out[name][f"device_ms_{label}"] = dev_ms[name]
+        log(f"[2b] K2 at d={d}, NB=31250, f32: " + ", ".join(
+            f"{name} {out[name][f'device_ms_{label}'] * 1e3:.1f} us device, "
+            f"{out[name][f'ms_{label}'] * 1e3:.1f} us per call"
+            for name in K2_PATH))
+    return out
+
+
+def phase_audit(torch):
+    """Phase 3e: f32 accuracy at the JAX package's own audit point
+    (tools/accuracy_audit.py, regenerated here): n = 1M, rng seed 0,
+    times = cumsum U(0.4, 0.6), obs = cumsum N(0, 0.3^2) in 2-D, theta =
+    (0.05, -0.02, log 2, log 1) for every step, sigma_obs = 0.1. The port's
+    `ctcrw_loglik_soa(scan="fused", analytic_grad=True)` in f32 on the
+    card against its plain version (CtcrwPlainCore) in f64 on the card;
+    gates: nllk within 1e-4 relative, the gradient in theta within 1e-4
+    of |nllk|, every par-space kernel launched. Returns the errors beside
+    docs/ACCURACY.md's TPU ones."""
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+    from smoothsde_tpu_torch.ops.kalman_soa import (
+        CtcrwPlainCore,
+        ctcrw_loglik_soa,
+        prepare_ctcrw_data,
+    )
+
+    dev = torch.device("cuda")
+    n = 1_000_000
+    rng = np.random.default_rng(0)
+    times = np.cumsum(rng.uniform(0.4, 0.6, size=n))
+    obs = np.cumsum(rng.normal(size=(n, 2)) * 0.3, axis=0)
+    ids = np.zeros(n, np.int32)
+    theta0 = [0.05, -0.02, np.log(2.0), np.log(1.0)]
+    res = {}
+    cf.reset_launches()
+    for dtype in (torch.float32, torch.float64):
+        data = prepare_ctcrw_data(obs, times, ids, dtype=dtype, device=dev)
+        th = torch.tensor(theta0, dtype=dtype, device=dev, requires_grad=True)
+        par = th.expand(n, 4).contiguous()
+        if dtype == torch.float32:
+            v = ctcrw_loglik_soa(par, None, None, None, 0.1, scan="fused",
+                                 analytic_grad=True, data=data)
+        else:
+            h = torch.tensor(0.01, dtype=dtype, device=dev)
+            v = CtcrwPlainCore.apply(par, data.yd, h, data.dtv, data.resetf,
+                                     data.validf, P0_POS, P0_VEL)
+        (g,) = torch.autograd.grad(-v, th)
+        res[dtype] = (-float(v.detach()), g.double().cpu().numpy())
+    for name, _, _ in CTCRW_KERNELS:
+        check(cf.LAUNCHES[name] > 0, f"3e: kernel {name} never launched")
+    (v32, g32), (v64, g64) = res[torch.float32], res[torch.float64]
+    check(np.isfinite(v32) and np.all(np.isfinite(g32)),
+          "3e: non-finite f32 nllk or gradient")
+    ev = abs(v32 - v64) / abs(v64)
+    eg = float(np.max(np.abs(g32 - g64)) / abs(v64))
+    names = ["mu1", "mu2", "log_tau", "log_nu"]
+    per = {nm: float(abs(g32[i] - g64[i]) / abs(g64[i]))
+           for i, nm in enumerate(names)}
+    # docs/ACCURACY.md, 1M-step audit: f32 fused on one TPU v5e chip vs
+    # the f64 CPU oracle (the JAX package's figures, not the port's)
+    jax_tpu = {"nllk": 3.4e-6, "mu1": 3.3e-6, "mu2": 3.5e-6,
+               "log_tau": 9.5e-6, "log_nu": 7.9e-5}
+    out = {"nllk_f32": v32, "nllk_f64": v64, "grad_f32": g32.tolist(),
+           "grad_f64": g64.tolist(), "nllk_rel": ev,
+           "grad_err_over_nllk": eg, "grad_rel_per_component": per,
+           "jax_package_tpu_rel": jax_tpu,
+           "worse_than_2x_jax": [nm for nm in names
+                                 if per[nm] > 2 * jax_tpu[nm]]}
+    log(f"[3e] audit point, f32 kernels vs f64 plain: {json.dumps(out)}")
+    check(ev <= 1e-4, f"3e f32 nllk rel {ev:.3e}")
+    check(eg <= 1e-4, f"3e f32 gradient {eg:.3e} of |nllk|")
+    return out
 
 
 def diag_fit(torch, label, typ, data, response, par0, truth):
@@ -595,6 +826,7 @@ def diag_kernel_checks(torch, fit):
                     e["plain_ms"] = cuda_ms(lambda: fn(ops_p), 3, 1, torch)
                     e["shape"] = (f"{typ} n={p.n} d={d} lanes={p.lanes} "
                                   f"L={p.L} f32")
+                    e.update(bound(name, p, 4))
     for name, e in out.items():
         log(f"  {typ} {name}: {e['ms']:.4f} ms (plain {e['plain_ms']:.2f} "
             f"ms), f64 max abs err {e['max_abs_err']:.2e}")
@@ -794,6 +1026,7 @@ def elem_kernel_checks(torch, b32, b64, d32, d64, x):
                     e["ms"] = cuda_ms(kfn, 50, 3, torch)
                     e["plain_ms"] = cuda_ms(pfn, 3, 1, torch)
                     e["shape"] = f"n={n} d={d} lanes={p.lanes} L={p.L} f32"
+                    e.update(bound(name, p, 4))
     times = {}
     for scan in ("fused", "pallas"):
         def vg(scan=scan):
@@ -878,6 +1111,9 @@ def main():
             "k32": (f32, partial(diag_value_grad, typ, DiagFusedCore)),
         }, partial(prepare_diag_data, typ), n_extra)
         log(f"[2] {typ} worst: {json.dumps(worst_diag[typ])}")
+    log("[2b] the cross-block prefix K2 alone vs its plain version, around "
+        "its tile")
+    k2 = phase_k2(torch)
 
     log("[3] config 5a: 1M-step 2-D CTCRW fit on the card, f32")
     t = time.time()
@@ -943,6 +1179,8 @@ def main():
         "d = 2, f32)")
     elem = elem_full_width(torch, sde, data, x_points, b32, b64, d32, d64,
                            plain64)
+    log("[3e] f32 accuracy at the JAX package's audit point (1M steps)")
+    audit = phase_audit(torch)
 
     log("[4] kernels vs plain at the fit's shapes, and times")
     ops_k, ops_p = cf.OPS["kernels"], cf.OPS["plain"]
@@ -996,6 +1234,7 @@ def main():
                     e["ms"] = cuda_ms(lambda: fn(ops_k), 50, 3, torch)
                     e["plain_ms"] = cuda_ms(lambda: fn(ops_p), 3, 1, torch)
                     e["shape"] = f"n=1000000 d=2 lanes={p.lanes} L={p.L} f32"
+                    e.update(bound(name, p, 4))
     kernels = [entries[name] for name, _, _ in CTCRW_KERNELS]
     for e in kernels:
         log(f"  {e['name']}: {e['ms']:.4f} ms (plain {e['plain_ms']:.2f} ms),"
@@ -1053,7 +1292,10 @@ def main():
             "replaces": replaces, "launches": elem["launches"][name],
             **elem_checks[name],
         })
+    for e in kernels:
+        e.update(k2.get(e["name"], {}))
     fit_line["kernel_checks_diag"] = worst_diag
+    fit_line["accuracy_audit_point"] = audit
     for fit, times in ((ou, ou_times), (bm, bm_times)):
         fit_line[fit["typ"]] = {"fit": fit["summary"], **times}
     log("SUMMARY " + json.dumps(fit_line))

@@ -42,9 +42,9 @@ _SIGNATURES = {
     "ctcrw_filter_totals": "pppddpii",
     # stack, bd, prefix, h, p0_pos, p0_vel, moments, llk, L, lanes
     "ctcrw_filter_scan": "ppppddppii",
-    # totals, out, d, NB, reverse
-    "block_prefix_filter": "ppiii",
-    "block_prefix_smooth": "ppiii",
+    # totals, out, tiles (scratch), d, NB, ntiles, reverse
+    "block_prefix_filter": "pppiiii",
+    "block_prefix_smooth": "pppiiii",
     # stack, moments, totals, rows, L, lanes
     "ctcrw_smooth_totals": "pppiii",
     # stack, moments, suffix, h, p0_pos, cot, hbar, rows, L, lanes
@@ -54,8 +54,8 @@ _SIGNATURES = {
     "diag_filter_totals": "ppdpii",
     # stack, prefix, h, p0, moments, llk, L, lanes
     "diag_filter_scan": "pppdppii",
-    "block_prefix_diag_filter": "ppiii",
-    "block_prefix_diag_smooth": "ppiii",
+    "block_prefix_diag_filter": "pppiiii",
+    "block_prefix_diag_smooth": "pppiiii",
     # stack, moments, totals, L, lanes
     "diag_smooth_totals": "pppii",
     # stack, moments, suffix, h, p0, cot, hbar, L, lanes

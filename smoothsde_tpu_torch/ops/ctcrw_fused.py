@@ -82,10 +82,12 @@ from smoothsde_tpu_torch.ops.stable import em1, phi, psi
 
 # Steps per lane the geometry aims for. At 1M steps and d = 2 this gives
 # NB = 31,250 blocks, L = 32 and 62,500 lanes (one thread each, ~470 per
-# SM of the H100's 132): a short serial chain per thread, while the
-# cross-block prefix (K2) stays one launch per direction. Fewer steps
-# per lane would fill the card better but lengthen K2's chain.
+# SM of the H100's 132): a short serial chain per thread. Fewer steps per
+# lane would fill the card better and give K2 more blocks to scan.
 STEPS_PER_LANE = 32
+# Blocks per tile of K2's multi-block scan (kPrefixTile in
+# csrc/block_prefix.cu, which refuses a scratch sized for another tile).
+PREFIX_TILE = 256
 
 _PAR_ROWS = 10
 _N_BD = 5  # boundary rows: prev lt, ln, dt, mu, rst per lane
@@ -817,9 +819,12 @@ def block_prefix(totals, d, elem, reverse):
     C, lanes = totals.shape
     if C != len(ELEMS[elem].id_vals) or lanes % d:
         raise ValueError(f"totals shape {tuple(totals.shape)} for {elem}")
+    NB = lanes // d
+    ntiles = -(-NB // PREFIX_TILE)
     out = torch.empty_like(totals)
-    name = f"block_prefix_{elem}"
-    _launch(name, totals, out, d, lanes // d, int(bool(reverse)))
+    tiles = totals.new_empty((C, d * ntiles))  # the kernel's scratch
+    _launch(f"block_prefix_{elem}", totals, out, tiles, d, NB, ntiles,
+            int(bool(reverse)))
     return out
 
 

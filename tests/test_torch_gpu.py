@@ -1,7 +1,7 @@
 """CUDA kernels of smoothsde_tpu_torch against their plain PyTorch
 versions on the card: the CTCRW kernels (par-space and element-space),
-the phase-1 scan K8, the scalar-state (BM_SSM / OU_SSM) ones, and the
-launcher's argument checks. Every test that needs
+the cross-block prefix K2 alone, the phase-1 scan K8, the scalar-state
+(BM_SSM / OU_SSM) ones, and the launcher's argument checks. Every test that needs
 the card is marked `gpu` and skips without a CUDA device. This file
 imports neither jax nor the JAX package, so it also runs where jax is
 not installed:
@@ -120,7 +120,8 @@ def test_wrapper_refuses_cpu_pointer(cuda):
 
     tot = torch.zeros((14, 8), device=cuda)
     with pytest.raises(TypeError):
-        _kernels.launch("block_prefix_filter", tot, tot.cpu(), 2, 4, 0)
+        _kernels.launch("block_prefix_filter", tot, tot.cpu(), tot, 2, 4, 1,
+                        0)
 
 
 @pytest.mark.gpu
@@ -132,10 +133,10 @@ def test_launch_rejects_dtype_mismatch(cuda):
     tot = torch.zeros((5, 8), device=cuda)
     with pytest.raises(TypeError, match="float64"):
         _kernels.launch("block_prefix_diag_filter", tot,
-                        tot.to(torch.float64), 2, 4, 0)
+                        tot.to(torch.float64), tot, 2, 4, 1, 0)
     with pytest.raises(TypeError, match="contiguous"):
         _kernels.launch("block_prefix_diag_filter", tot,
-                        torch.zeros((8, 5), device=cuda).T, 2, 4, 0)
+                        torch.zeros((8, 5), device=cuda).T, tot, 2, 4, 1, 0)
 
 
 def test_launch_checks_arguments_before_building(monkeypatch):
@@ -150,9 +151,85 @@ def test_launch_checks_arguments_before_building(monkeypatch):
     monkeypatch.setattr(_kernels, "_lib", None)
     tot = torch.zeros((5, 8))
     with pytest.raises(TypeError, match="CUDA"):
-        _kernels.launch("block_prefix_diag_filter", tot, tot, 2, 4, 0)
+        _kernels.launch("block_prefix_diag_filter", tot, tot, tot, 2, 4, 1, 0)
     with pytest.raises(TypeError, match="arguments"):
-        _kernels.launch("block_prefix_diag_filter", tot, tot, 2, 4)
+        _kernels.launch("block_prefix_diag_filter", tot, tot, tot, 2, 4)
+
+
+K2_KINDS = [(kind, rev) for kind in ("filter", "smooth", "diag_filter",
+                                     "diag_smooth") for rev in (False, True)]
+@pytest.fixture(scope="module")
+def k2_totals():
+    """Real per-block totals of every element kind, f64 on the card: the
+    plain K1a / K3a / D1a / D3a chains over a two-track record, d = 2,
+    2,048 lanes; or a skip without a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    n = 32 * 1024
+    obs, times, ids, par = _data(2, n, 60)
+    data = prepare_ctcrw_data(obs, times, ids, dtype=torch.float64,
+                              device=dev)
+    p = cf.plan(2, n)
+    pt = torch.tensor(par, device=dev)
+    stack, bd = cf.par_stack_from_data(pt, data.yd, data.dtv, data.resetf,
+                                       data.validf, p)
+    h = torch.tensor([0.01], dtype=torch.float64, device=dev)
+    ftot = cf.filter_totals_plain(stack, bd, h, 1.0, 10.0)
+    pre = cf.block_prefix_plain(ftot, 2, "filter", False)
+    mom, _ = cf.filter_scan_plain(stack, bd, pre, h, 1.0, 10.0)
+    sysd = df.diag_system("OU_SSM", pt, obs, times, ids, 0.1)
+    rows = (sysd.t, sysd.q, sysd.c, sysd.yd, sysd.resetf, sysd.updatef, p)
+    fwd = df.forward_stack(*rows)
+    dtot = df.diag_filter_totals_plain(fwd, h, df.P0)
+    dpre = cf.block_prefix_plain(dtot, 2, "diag_filter", False)
+    dmom, _ = df.diag_filter_scan_plain(fwd, dpre, h, df.P0)
+    return {"filter": ftot, "smooth": cf.smooth_totals_plain(stack, mom),
+            "diag_filter": dtot,
+            "diag_smooth": df.diag_smooth_totals_plain(
+                df.backward_stack(*rows), dmom)}
+
+
+def _cycled(tot, d, nb):
+    """(C, d * nb) real totals: the lanes of `tot`, cycled with stride 5."""
+    idx = torch.from_numpy((5 * np.arange(d * nb)) % tot.shape[1])
+    return tot[:, idx.to(tot.device)].contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 2])
+@pytest.mark.parametrize("nb", [1, cf.PREFIX_TILE - 1, cf.PREFIX_TILE,
+                                cf.PREFIX_TILE + 1, 31250])
+@pytest.mark.parametrize("kind,reverse", K2_KINDS)
+def test_block_prefix_kernel_matches_plain(k2_totals, kind, reverse, nb, d):
+    """K2 alone, every element kind in both directions, at block counts
+    around its tile and config 5a's NB = 31,250: f64 within 1e-10 of the
+    output's scale, f32 against the f64 plain version within 1e-5; one
+    launch per call."""
+    tot = _cycled(k2_totals[kind], d, nb)
+    ref = cf.block_prefix_plain(tot, d, kind, reverse)
+    scale = max(1.0, float(ref.abs().max()))
+    cf.reset_launches()
+    got = cf.block_prefix(tot, d, kind, reverse)
+    got32 = cf.block_prefix(tot.float(), d, kind, reverse)
+    assert cf.LAUNCHES[f"block_prefix_{kind}"] == 2
+    assert bool(torch.isfinite(got).all()) and bool(
+        torch.isfinite(got32).all())
+    assert float((got - ref).abs().max()) <= 1e-10 * scale
+    assert float((got32.double() - ref).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+def test_block_prefix_refuses_wrong_tile_count(cuda):
+    """The C entry point refuses a scratch sized for another tile."""
+    from smoothsde_tpu_torch.ops import _kernels
+
+    tot = torch.zeros((5, 2 * 300), device=cuda)
+    out, tiles = torch.empty_like(tot), torch.empty((5, 2 * 2), device=cuda)
+    _kernels.launch("block_prefix_diag_filter", tot, out, tiles, 2, 300, 2, 0)
+    with pytest.raises(RuntimeError, match="block_prefix"):
+        _kernels.launch("block_prefix_diag_filter", tot, out, tiles, 2, 300,
+                        1, 0)
 
 
 def _diag_data(typ, d, n, seed):
