@@ -26,6 +26,12 @@ non-zero before the final line:
      and f32 (against the f64 plain version) within 1e-5 of the output's
      scale; then its time at the diag fits' shapes (d = 2 and d = 1,
      NB = 31,250);
+     2c. the backward kernels K3a and K3b alone against their plain
+     versions: d in {1, 2, 3}, n in {80, 2,048, 5,000, 20,001} (lanes
+     below, at and across their 64-lane tile, not a multiple of 4) and
+     lanes cut to L in {1, 3} steps (below and across their 2-step
+     chunk); f64 within 1e-10 and f32 (against the f64 plain version)
+     within 1e-4 of the output's scale;
   3. the CTCRW slice at full size: a 1M-step 2-D CTCRW (dt = 0.1,
      tau = 3, nu = 1, sigma_obs = 0.1, seed 5), simulated here with
      NumPy, fitted by `SDE(..., device="cuda").fit()` in f32; requires
@@ -60,18 +66,20 @@ non-zero before the final line:
      diag kernels at both the OU_SSM and the BM_SSM fit's, the
      element-space kernels and K8 at config 5a's; f64, max abs error
      within 1e-8 of the output's scale), and times on the card: each
-     kernel and its plain version (CUDA events), nllk + grad at 1M
-     steps (host wall time per call, median and p90, kernels and plain;
-     the element-space "fused" and "pallas" beside the par-space core),
+     kernel and its plain version (CUDA events; the CTCRW kernels in
+     f64 too), nllk + grad at 1M steps (host wall time per call, median
+     and p90, kernels and plain; the element-space "fused" and "pallas"
+     beside the par-space core),
      `smoothed_states()` at 1M, device time per kernel and the device's
-     busy share (torch.profiler), the fits. Each fit counts its launches
-     from zero.
+     busy share (torch.profiler; the CTCRW path in f64 too), the fits.
+     Each fit counts its launches from zero.
 
 The line before last is the card as nvidia-smi reports it, the one
 before that a JSON object {"kernels": [...]} (per kernel: launches on its
 main path, f64 error against the plain version, ms and plain_ms from CUDA
 events, device_ms from the profiler, bytes and bound_us / bound_ms /
-bound_by from `bound`, library_ms null), and the last line
+bound_by from `bound`, share = bound_ms / device_ms, library_ms null; the
+CTCRW kernels also ms_f64 and device_ms_f64), and the last line
 {"ok": true, "device": {...}}. It imports nothing of JAX.
 """
 
@@ -631,6 +639,72 @@ def phase_k2(torch):
     return out
 
 
+def backward_inputs(torch, d, n, L):
+    """(stack, moments, suffix, h) of the par-space backward, f64 on the
+    card, from the plain forward over two_track_data(d, n); cut to each
+    lane's first L steps when L is given."""
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+    from smoothsde_tpu_torch.ops.kalman_soa import prepare_ctcrw_data
+
+    dev = torch.device("cuda")
+    obs, times, ids, par = two_track_data(d, n, seed=70 + d)
+    data = prepare_ctcrw_data(obs, times, ids, dtype=torch.float64,
+                              device=dev)
+    p = cf.plan(d, n)
+    stack, bd = cf.par_stack_from_data(torch.tensor(par, device=dev),
+                                       data.yd, data.dtv, data.resetf,
+                                       data.validf, p)
+    h = torch.tensor([0.04], dtype=torch.float64, device=dev)
+    tot = cf.filter_totals_plain(stack, bd, h, P0_POS, P0_VEL)
+    pre = cf.block_prefix_plain(tot, d, "filter", False)
+    mom, _ = cf.filter_scan_plain(stack, bd, pre, h, P0_POS, P0_VEL)
+    if L is not None:
+        stack, mom = stack[:L].contiguous(), mom[:L].contiguous()
+    suffix = cf.block_prefix_plain(cf.smooth_totals_plain(stack, mom), d,
+                                   "smooth", True)
+    return stack, mom, suffix, h
+
+
+def phase_k3(torch):
+    """Phase 2c: the backward kernels K3a and K3b alone against their
+    plain versions on the card, d in {1, 2, 3}, n in {80, 2048, 5000,
+    20001} (lanes below, at and across the 64-lane tile, not a multiple of
+    4) and n = 5000 cut to L in {1, 3} steps per lane (below and across
+    the 2-step chunk): f64 within 1e-10 of the output's scale, f32 against
+    the f64 plain version within 1e-4 (the f32 bar: f32 forming the 2x2
+    inverses and the Qinv E Qinv score on short intervals costs up to
+    ~5e-5 of the scale here, in the one-thread-per-lane walk too).
+    Returns the worst errors."""
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+
+    worst = {f"{k}_{dt}": 0.0 for k in ("ctcrw_smooth_totals",
+                                         "ctcrw_score_scan")
+             for dt in ("f64", "f32")}
+    shapes = [(d, n, None) for d in (1, 2, 3)
+              for n in (80, 2048, 5000, 20001)]
+    shapes += [(d, 5000, L) for d in (1, 2, 3) for L in (1, 3)]
+    for d, n, L in shapes:
+        stack, mom, suffix, h = backward_inputs(torch, d, n, L)
+        ref = {"ctcrw_smooth_totals": cf.smooth_totals_plain(stack, mom),
+               "ctcrw_score_scan": cf.score_scan_plain(stack, mom, suffix, h,
+                                                       P0_POS)}
+        for dtype, dt, bar in ((torch.float64, "f64", 1e-10),
+                               (torch.float32, "f32", 1e-4)):
+            x = [t.to(dtype) for t in (stack, mom, suffix, h)]
+            got = {"ctcrw_smooth_totals": cf.smooth_totals(x[0], x[1]),
+                   "ctcrw_score_scan": cf.score_scan(*x, P0_POS)}
+            for name, out in got.items():
+                g, r = flat(out, torch).double(), flat(ref[name], torch)
+                where = f"2c {name} {dt} d={d} n={n} L={L}"
+                check(bool(torch.isfinite(g).all()), f"{where}: non-finite")
+                err = float((g - r).abs().max()) / max(1.0,
+                                                       float(r.abs().max()))
+                check(err <= bar, f"{where}: {err:.3e} of the scale")
+                worst[f"{name}_{dt}"] = max(worst[f"{name}_{dt}"], err)
+    log(f"[2c] worst error over the output's scale: {json.dumps(worst)}")
+    return worst
+
+
 def phase_audit(torch):
     """Phase 3e: f32 accuracy at the JAX package's own audit point
     (tools/accuracy_audit.py, regenerated here): n = 1M, rng seed 0,
@@ -1114,6 +1188,9 @@ def main():
     log("[2b] the cross-block prefix K2 alone vs its plain version, around "
         "its tile")
     k2 = phase_k2(torch)
+    log("[2c] the backward kernels K3a and K3b alone vs their plain "
+        "versions, around their tile and chunk")
+    k3 = phase_k3(torch)
 
     log("[3] config 5a: 1M-step 2-D CTCRW fit on the card, f32")
     t = time.time()
@@ -1229,6 +1306,7 @@ def main():
                     e["max_rel_err"] = err / scale
                     check(err <= 1e-8 * scale,
                           f"{name}: f64 kernel vs plain max abs err {err:.3e}")
+                    e["ms_f64"] = cuda_ms(lambda: fn(ops_k), 50, 3, torch)
                 else:
                     e["max_abs_err_f32"] = err
                     e["ms"] = cuda_ms(lambda: fn(ops_k), 50, 3, torch)
@@ -1243,10 +1321,15 @@ def main():
     dev_ms, busy_ms, prof_wall_ms = profile_device_ms(
         lambda: outer_value_grad(b32, CtcrwFusedCore, d32, x_hat, torch), 10,
         torch)
+    dev64_ms, busy64_ms, _ = profile_device_ms(
+        lambda: outer_value_grad(b64, CtcrwFusedCore, d64, x_hat, torch), 10,
+        torch)
     for e in kernels:
         e["device_ms"] = dev_ms[e["name"]]
+        e["device_ms_f64"] = dev64_ms[e["name"]]
     log(f"[4] profiler, per nllk+grad: device busy {busy_ms:.3f} ms of "
-        f"{prof_wall_ms:.3f} ms wall; per kernel {json.dumps(dev_ms)}")
+        f"{prof_wall_ms:.3f} ms wall; per kernel {json.dumps(dev_ms)}; f64: "
+        f"busy {busy64_ms:.3f} ms, per kernel {json.dumps(dev64_ms)}")
     vg_k = wall_ms(
         lambda: outer_value_grad(b32, CtcrwFusedCore, d32, x_hat, torch),
         110, 5)
@@ -1256,7 +1339,8 @@ def main():
         "card": card,
         "nllk_grad_1M_ms": {"kernels": vg_k, "plain": vg_p},
         "profile_per_nllk_grad_ms": {"device_busy": busy_ms,
-                                     "wall": prof_wall_ms},
+                                     "wall": prof_wall_ms,
+                                     "device_busy_f64": busy64_ms},
         "fit": {"wall_s": fit_s, "evals": res.counts["evals"],
                 "bfgs": res.counts, "via": res.convergence_via,
                 "tau": tau_hat, "nu": nu_hat, "nllk": res.value},
@@ -1294,7 +1378,10 @@ def main():
         })
     for e in kernels:
         e.update(k2.get(e["name"], {}))
+        if e.get("device_ms"):  # the bound's share of the device time
+            e["share"] = e["bound_ms"] / e["device_ms"]
     fit_line["kernel_checks_diag"] = worst_diag
+    fit_line["kernel_checks_k3"] = k3
     fit_line["accuracy_audit_point"] = audit
     for fit, times in ((ou, ou_times), (bm, bm_times)):
         fit_line[fit["typ"]] = {"fit": fit["summary"], **times}

@@ -148,7 +148,9 @@ def path_calls(torch, which):
                               device=dev)
 
     def vg(theta, loglik):
-        th = torch.tensor(theta, device=dev, requires_grad=True)
+        # f32 as the data: np.log's float64 would promote the path to f64
+        th = torch.tensor(theta, dtype=torch.float32, device=dev,
+                          requires_grad=True)
 
         def call():
             v = loglik(th.expand(n, len(theta)).contiguous())

@@ -557,18 +557,24 @@ def block_prefix_plain(totals, d, elem, reverse):
     return ex.reshape(C, lanes).contiguous()
 
 
+def _par_smooth_elem(lt, ln, dtv, mu, te, R, mom):
+    """(transition terms, smoothing element, unmasked RTS gain) of a step
+    from its own par (the transition LEAVING it) and its filtered moments
+    mom = (m0, m1, P00, P01, P11)."""
+    w = _par_terms_vals(lt, ln, dtv, mu, R)
+    e, G = _smooth_elem_vals(w["f01"], w["f11"], w["q00"], w["q01"],
+                             w["q11"], w["c0"], w["c1"], *mom, te)
+    return w, e, G
+
+
 def smooth_totals_plain(stack, moments):
     """K3a: (9, lanes) reverse composition of each lane's smoothing
     elements."""
     acc = _unpack_sm(_identity(_ID_SM, stack[0, 0]))
     for l in reversed(range(stack.shape[0])):
         lt, ln, dtv, mu, te = stack[l, :5].unbind(0)
-        w = _par_terms_vals(lt, ln, dtv, mu, stack[l, 8])
-        m0, m1, P00, P01, P11 = moments[l].unbind(0)
-        e, _ = _smooth_elem_vals(
-            w["f01"], w["f11"], w["q00"], w["q01"], w["q11"],
-            w["c0"], w["c1"], m0, m1, P00, P01, P11, te,
-        )
+        _, e, _ = _par_smooth_elem(lt, ln, dtv, mu, te, stack[l, 8],
+                                   moments[l].unbind(0))
         acc = _combine2_rev(acc, e)
     return torch.stack(_pack_sm(acc))
 
@@ -585,42 +591,47 @@ def score_scan_plain(stack, moments, suffix, h, p0_pos):
     cots = [None] * L
     for l in reversed(range(L)):
         lt, ln, dtv, mu, te, TVn, y, U, R = stack[l, :9].unbind(0)
-        w = _par_terms_vals(lt, ln, dtv, mu, R)
-        m0, m1f, P00, P01, P11 = moments[l].unbind(0)
-        e, G = _smooth_elem_vals(
-            w["f01"], w["f11"], w["q00"], w["q01"], w["q11"],
-            w["c0"], w["c1"], m0, m1f, P00, P01, P11, te,
-        )
+        w, e, G = _par_smooth_elem(lt, ln, dtv, mu, te, R,
+                                   moments[l].unbind(0))
         nxt = acc  # smoothed at i+1 is the incoming accumulator
         acc = _combine2_rev(acc, e)  # smoothed at i
-        Fb01, Fb11, Qb00, Qb01, Qb11, cb0, cb1 = _transition_score(
-            w["f01"], w["f11"], w["q00"], w["q01"], w["q11"], w["c0"],
-            w["c1"], TVn, nxt, acc, G,
-        )
-
-        # ---- par -> (F, Q, c) chain rule, all closed-form ----
-        u, e1, m1 = w["u"], w["e1"], w["m1"]
-        ue1 = u * e1
-        # d/d(log tau): g = tau*em1, e1' = u e1; q terms carry the tau
-        # powers of sigma2/beta^k; phi' = em1^2, psi' = em1
-        dg = w["g"] - w["dtv"] * e1
-        dq00 = 2.0 * w["uq00"] - w["s3"] * u * m1 * m1
-        dq01 = w["uq01"] - 2.0 * w["s2"] * m1 * ue1
-        dq11 = -2.0 * w["s1"] * ue1 * e1
-        dbp = w["bp"] - w["dtv"] * m1
-        # q01 feeds BOTH off-diagonal Q entries in the primal -> 2x
-        ltb = (Fb01 * dg + Fb11 * ue1
-               + Qb00 * dq00 + 2.0 * Qb01 * dq01 + Qb11 * dq11
-               + (cb0 * dbp - cb1 * ue1) * w["m"])
-        # all Q entries scale as nu^2
-        lnb = 2.0 * (Qb00 * w["uq00"] + 2.0 * Qb01 * w["uq01"]
-                     + Qb11 * w["uq11"])
-        mub = cb0 * w["bp"] + cb1 * w["bv"]
-
         yb, h_term = _obs_score(y, acc, U, R, hs, p0_pos)
         ha = ha + h_term
-        cots[l] = torch.stack([TVn * mub, TVn * ltb, TVn * lnb, yb])
+        cots[l] = _step_cot(w, TVn, nxt, acc, G, yb)
     return torch.stack(cots), ha
+
+
+def _par_chain_rule(w, Fb01, Fb11, Qb00, Qb01, Qb11, cb0, cb1):
+    """The transition score contracted to (mu, log tau, log nu) by the
+    par -> (F, Q, c) chain rule, all closed-form (before the TVn mask)."""
+    u, e1, m1 = w["u"], w["e1"], w["m1"]
+    ue1 = u * e1
+    # d/d(log tau): g = tau*em1, e1' = u e1; q terms carry the tau
+    # powers of sigma2/beta^k; phi' = em1^2, psi' = em1
+    dg = w["g"] - w["dtv"] * e1
+    dq00 = 2.0 * w["uq00"] - w["s3"] * u * m1 * m1
+    dq01 = w["uq01"] - 2.0 * w["s2"] * m1 * ue1
+    dq11 = -2.0 * w["s1"] * ue1 * e1
+    dbp = w["bp"] - w["dtv"] * m1
+    # q01 feeds BOTH off-diagonal Q entries in the primal -> 2x
+    ltb = (Fb01 * dg + Fb11 * ue1
+           + Qb00 * dq00 + 2.0 * Qb01 * dq01 + Qb11 * dq11
+           + (cb0 * dbp - cb1 * ue1) * w["m"])
+    # all Q entries scale as nu^2
+    lnb = 2.0 * (Qb00 * w["uq00"] + 2.0 * Qb01 * w["uq01"]
+                 + Qb11 * w["uq11"])
+    mub = cb0 * w["bp"] + cb1 * w["bv"]
+    return mub, ltb, lnb
+
+
+def _step_cot(w, TVn, nxt: Smooth2, cur: Smooth2, G, yb):
+    """K3b's (4, lanes) cotangents of one step: the score of its leaving
+    transition (nxt / cur: smoothed at the next step and at this one),
+    masked by TVn, then the y cotangent yb."""
+    score = _transition_score(w["f01"], w["f11"], w["q00"], w["q01"],
+                              w["q11"], w["c0"], w["c1"], TVn, nxt, cur, G)
+    mub, ltb, lnb = _par_chain_rule(w, *score)
+    return torch.stack([TVn * mub, TVn * ltb, TVn * lnb, yb])
 
 
 # ---- element-space plain versions (K4a, K4b, K5a, K5b) ----

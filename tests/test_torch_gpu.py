@@ -298,6 +298,63 @@ def _flat(out):
     return out.reshape(-1)
 
 
+def _backward_inputs(d, n, L, device):
+    """(stack, moments, suffix, h) of the par-space backward, f64 on the
+    card, from the plain forward over a two-track record with NaN rows and
+    irregular dt; cut to each lane's first L steps when L is given."""
+    obs, times, ids, par = _data(d, n, 70 + d)
+    data = prepare_ctcrw_data(obs, times, ids, dtype=torch.float64,
+                              device=device)
+    p = cf.plan(d, n)
+    stack, bd = cf.par_stack_from_data(torch.tensor(par, device=device),
+                                       data.yd, data.dtv, data.resetf,
+                                       data.validf, p)
+    h = torch.tensor([0.04], dtype=torch.float64, device=device)
+    tot = cf.filter_totals_plain(stack, bd, h, 1.0, 10.0)
+    pre = cf.block_prefix_plain(tot, d, "filter", False)
+    mom, _ = cf.filter_scan_plain(stack, bd, pre, h, 1.0, 10.0)
+    if L is not None:
+        stack, mom = stack[:L].contiguous(), mom[:L].contiguous()
+    suffix = cf.block_prefix_plain(cf.smooth_totals_plain(stack, mom), d,
+                                   "smooth", True)
+    return stack, mom, suffix, h
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 2, 3])
+@pytest.mark.parametrize("n,L", [(80, None), (2048, None), (5000, None),
+                                 (20001, None), (5000, 1), (5000, 3)])
+def test_backward_kernels_match_plain(cuda, d, n, L):
+    """K3a and K3b alone against their plain versions: f64 within 1e-10
+    of the output's scale, f32 (on the inputs rounded to f32) against the
+    f64 plain version within 1e-4, the f32 bar of docs/ACCURACY.md: the
+    element's 2x2 inverse and the Qinv E Qinv score on intervals down to
+    dt = 0.05 cost f32 up to 4.7e-5 of the scale here, in the walk these
+    kernels replaced too (the same K3a bits). Lanes below one 64-lane
+    tile (n = 80: 3d lanes), at it (n = 2048: 64d) and across it, not a
+    multiple of 4 (n = 5000: 157d); L around the 2-step chunk: 1 (below
+    it), 3, 27, 32. One launch of each per call."""
+    stack, mom, suffix, h = _backward_inputs(d, n, L, cuda)
+    ref = {"K3a": cf.smooth_totals_plain(stack, mom),
+           "K3b": cf.score_scan_plain(stack, mom, suffix, h, 1.0)}
+    cf.reset_launches()
+    errs = {}
+    for dtype in (torch.float64, torch.float32):
+        x = [t.to(dtype) for t in (stack, mom, suffix, h)]
+        got = {"K3a": cf.smooth_totals(x[0], x[1]),
+               "K3b": cf.score_scan(*x, 1.0)}
+        for k, out in got.items():
+            g, r = _flat(out).double(), _flat(ref[k])
+            assert bool(torch.isfinite(g).all()), (k, dtype)
+            scale = max(1.0, float(r.abs().max()))
+            errs[(k, dtype)] = float((g - r).abs().max()) / scale
+    assert cf.LAUNCHES["ctcrw_smooth_totals"] == 2
+    assert cf.LAUNCHES["ctcrw_score_scan"] == 2
+    bad = {k: e for k, e in errs.items()
+           if e > (1e-10 if k[1] == torch.float64 else 1e-4)}
+    assert not bad, errs
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("d,n", [(1, 80), (2, 5000), (3, 20001)])
 def test_elem_and_phase1_kernels_match_plain_f64(cuda, d, n):
