@@ -32,6 +32,10 @@ non-zero before the final line:
      lanes cut to L in {1, 3} steps (below and across their 2-step
      chunk); f64 within 1e-10 and f32 (against the f64 plain version)
      within 1e-4 of the output's scale;
+     2d. the forward kernels K1a and K1b alone against their plain
+     versions, at the shapes and with the bars of 2c (lanes below, at and
+     across their 128-lane CUDA block; L = 1 leaves no next step to
+     prefetch);
   3. the CTCRW slice at full size: a 1M-step 2-D CTCRW (dt = 0.1,
      tau = 3, nu = 1, sigma_obs = 0.1, seed 5), simulated here with
      NumPy, fitted by `SDE(..., device="cuda").fit()` in f32; requires
@@ -639,22 +643,42 @@ def phase_k2(torch):
     return out
 
 
-def backward_inputs(torch, d, n, L):
-    """(stack, moments, suffix, h) of the par-space backward, f64 on the
-    card, from the plain forward over two_track_data(d, n); cut to each
-    lane's first L steps when L is given."""
+def par_inputs(torch, d, n, seed):
+    """(stack, bd, h) of the par-space path, f64 on the card, over
+    two_track_data(d, n, seed)."""
     from smoothsde_tpu_torch.ops import ctcrw_fused as cf
     from smoothsde_tpu_torch.ops.kalman_soa import prepare_ctcrw_data
 
     dev = torch.device("cuda")
-    obs, times, ids, par = two_track_data(d, n, seed=70 + d)
+    obs, times, ids, par = two_track_data(d, n, seed=seed)
     data = prepare_ctcrw_data(obs, times, ids, dtype=torch.float64,
                               device=dev)
-    p = cf.plan(d, n)
     stack, bd = cf.par_stack_from_data(torch.tensor(par, device=dev),
                                        data.yd, data.dtv, data.resetf,
-                                       data.validf, p)
-    h = torch.tensor([0.04], dtype=torch.float64, device=dev)
+                                       data.validf, cf.plan(d, n))
+    return stack, bd, torch.tensor([0.04], dtype=torch.float64, device=dev)
+
+
+def forward_inputs(torch, d, n, L):
+    """(stack, bd, prefix, h) of the par-space forward, f64 on the card,
+    cut to each lane's first L steps when L is given; the prefix from the
+    plain K1a and K2 over the (cut) stack."""
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+
+    stack, bd, h = par_inputs(torch, d, n, 80 + d)
+    if L is not None:
+        stack = stack[:L].contiguous()
+    tot = cf.filter_totals_plain(stack, bd, h, P0_POS, P0_VEL)
+    return stack, bd, cf.block_prefix_plain(tot, d, "filter", False), h
+
+
+def backward_inputs(torch, d, n, L):
+    """(stack, moments, suffix, h) of the par-space backward, f64 on the
+    card, from the plain forward; cut to each lane's first L steps when L
+    is given."""
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+
+    stack, bd, h = par_inputs(torch, d, n, 70 + d)
     tot = cf.filter_totals_plain(stack, bd, h, P0_POS, P0_VEL)
     pre = cf.block_prefix_plain(tot, d, "filter", False)
     mom, _ = cf.filter_scan_plain(stack, bd, pre, h, P0_POS, P0_VEL)
@@ -665,43 +689,53 @@ def backward_inputs(torch, d, n, L):
     return stack, mom, suffix, h
 
 
-def phase_k3(torch):
-    """Phase 2c: the backward kernels K3a and K3b alone against their
-    plain versions on the card, d in {1, 2, 3}, n in {80, 2048, 5000,
-    20001} (lanes below, at and across the 64-lane tile, not a multiple of
-    4) and n = 5000 cut to L in {1, 3} steps per lane (below and across
-    the 2-step chunk): f64 within 1e-10 of the output's scale, f32 against
-    the f64 plain version within 1e-4 (the f32 bar: f32 forming the 2x2
-    inverses and the Qinv E Qinv score on short intervals costs up to
-    ~5e-5 of the scale here, in the one-thread-per-lane walk too).
-    Returns the worst errors."""
+# the kernels alone (phases 2c, 2d): each call takes an op table of
+# ops/ctcrw_fused.py (kernels or plain) and its inputs
+K3_ALONE = {
+    "ctcrw_smooth_totals": lambda o, x: o.smooth_totals(x[0], x[1]),
+    "ctcrw_score_scan": lambda o, x: o.score_scan(*x, P0_POS),
+}
+K1_ALONE = {
+    "ctcrw_filter_totals": lambda o, x: o.filter_totals(x[0], x[1], x[3],
+                                                        P0_POS, P0_VEL),
+    "ctcrw_filter_scan": lambda o, x: o.filter_scan(*x, P0_POS, P0_VEL),
+}
+
+
+def phase_alone(torch, tag, make_inputs, calls):
+    """Phases 2c (K3a, K3b: backward_inputs) and 2d (K1a, K1b:
+    forward_inputs): kernels alone against their plain versions on the
+    card, d in {1, 2, 3}, n in {80, 2048, 5000, 20001} (lanes below, at
+    and across K3's 64-lane tile and K1's 128-lane block, not a multiple
+    of 4) and n = 5000 cut to L in {1, 3} steps per lane (below and across
+    K3's 2-step chunk): f64 within 1e-10 of the output's scale, f32 (on the
+    inputs rounded to f32) against the f64 plain version within 1e-4 (the
+    f32 bar: f32 forming the 2x2 inverses and K3's Qinv E Qinv score on
+    short intervals costs up to ~5e-5 of the scale here, in the
+    one-thread-per-lane walks too). Returns the worst errors."""
     from smoothsde_tpu_torch.ops import ctcrw_fused as cf
 
-    worst = {f"{k}_{dt}": 0.0 for k in ("ctcrw_smooth_totals",
-                                         "ctcrw_score_scan")
-             for dt in ("f64", "f32")}
+    ops_k, ops_p = cf.OPS["kernels"], cf.OPS["plain"]
+    worst = {f"{k}_{dt}": 0.0 for k in calls for dt in ("f64", "f32")}
     shapes = [(d, n, None) for d in (1, 2, 3)
               for n in (80, 2048, 5000, 20001)]
     shapes += [(d, 5000, L) for d in (1, 2, 3) for L in (1, 3)]
     for d, n, L in shapes:
-        stack, mom, suffix, h = backward_inputs(torch, d, n, L)
-        ref = {"ctcrw_smooth_totals": cf.smooth_totals_plain(stack, mom),
-               "ctcrw_score_scan": cf.score_scan_plain(stack, mom, suffix, h,
-                                                       P0_POS)}
+        x64 = make_inputs(torch, d, n, L)
+        ref = {name: call(ops_p, x64) for name, call in calls.items()}
         for dtype, dt, bar in ((torch.float64, "f64", 1e-10),
                                (torch.float32, "f32", 1e-4)):
-            x = [t.to(dtype) for t in (stack, mom, suffix, h)]
-            got = {"ctcrw_smooth_totals": cf.smooth_totals(x[0], x[1]),
-                   "ctcrw_score_scan": cf.score_scan(*x, P0_POS)}
-            for name, out in got.items():
-                g, r = flat(out, torch).double(), flat(ref[name], torch)
-                where = f"2c {name} {dt} d={d} n={n} L={L}"
+            x = [t.to(dtype) for t in x64]
+            for name, call in calls.items():
+                g = flat(call(ops_k, x), torch).double()
+                r = flat(ref[name], torch)
+                where = f"{tag} {name} {dt} d={d} n={n} L={L}"
                 check(bool(torch.isfinite(g).all()), f"{where}: non-finite")
                 err = float((g - r).abs().max()) / max(1.0,
                                                        float(r.abs().max()))
                 check(err <= bar, f"{where}: {err:.3e} of the scale")
                 worst[f"{name}_{dt}"] = max(worst[f"{name}_{dt}"], err)
-    log(f"[2c] worst error over the output's scale: {json.dumps(worst)}")
+    log(f"[{tag}] worst error over the output's scale: {json.dumps(worst)}")
     return worst
 
 
@@ -1190,7 +1224,10 @@ def main():
     k2 = phase_k2(torch)
     log("[2c] the backward kernels K3a and K3b alone vs their plain "
         "versions, around their tile and chunk")
-    k3 = phase_k3(torch)
+    k3 = phase_alone(torch, "2c", backward_inputs, K3_ALONE)
+    log("[2d] the forward kernels K1a and K1b alone vs their plain "
+        "versions, around their CUDA block")
+    k1 = phase_alone(torch, "2d", forward_inputs, K1_ALONE)
 
     log("[3] config 5a: 1M-step 2-D CTCRW fit on the card, f32")
     t = time.time()
@@ -1382,6 +1419,7 @@ def main():
             e["share"] = e["bound_ms"] / e["device_ms"]
     fit_line["kernel_checks_diag"] = worst_diag
     fit_line["kernel_checks_k3"] = k3
+    fit_line["kernel_checks_k1"] = k1
     fit_line["accuracy_audit_point"] = audit
     for fit, times in ((ou, ou_times), (bm, bm_times)):
         fit_line[fit["typ"]] = {"fit": fit["summary"], **times}

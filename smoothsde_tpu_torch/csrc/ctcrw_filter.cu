@@ -11,25 +11,45 @@
 // response dim) and walks its steps in order, rebuilding each step's
 // entering CTCRW transition from the previous slot's par (carried in
 // registers, seeded from the boundary rows `bd`), forming the 14-comp
-// filtering element and composing it into its carry. The stack is
-// (L, rows, lanes), so at every step a warp reads 32 neighbouring values
-// of each row (coalesced).
+// filtering element and composing it into its carry; K1b takes each
+// step's predictive log-likelihood term from the carry before the step
+// and writes its filtered moments after it. The stack is (L, rows,
+// lanes), so at every step a warp reads 32 neighbouring values of each
+// row (coalesced). The rows of step l + 1 are loaded while step l
+// computes, and every division of the element math, the chain's four
+// divisions by its determinant included, is BranchFreeDiv
+// (csrc/ctcrw_common.cuh): the quotient of `/`, bit for bit on these
+// operands, without the branch to its slow path.
 //
 // What bounds it on the H100. Per lane-step K1a reads 8 of the 10 stack
 // rows and K1b reads 8 and writes 5 moments: at 1M steps, d = 2, f32
-// (2M lane-steps) that is 64 MB and 104 MB, 19 and 31 us at the card's
-// 3.35 TB/s. The serial chain is L = 32 dependent 14-comp combines per
-// thread (~150 flops, three divisions each), plus ~60 flops and three
-// exp/expm1 of transition terms that do not depend on the carry and
-// overlap it. Measured on an H100 SXM (700 W) at that size: K1a 49 us
-// (1.3 TB/s), K1b 55 us (1.9 TB/s), 40-57% of the HBM peak with 62,500
-// threads, so bytes bound them more than the chain does. The simple
-// design spends no shared memory: one coalesced pass over the stack per
-// kernel, the carry in registers.
+// (config 5a: 62,500 lanes of L = 32) that is 69 MB and 109 MB, 20.5 and
+// 32.5 us at 3.35 TB/s. The arithmetic of a step is ~450 instructions per
+// lane (three exp, an expm1, the two Taylor polynomials of psi and phi,
+// 12 divisions in K1a and 13 in K1b, the 14-comp combine), issued by at
+// most 16 warps per SM at this size: the walk is bound by issuing them,
+// not by the bytes. Measured on an H100 SXM (700 W) at config 5a
+// (tile_sweep.py, CUDA events per launch; PERF.md §6): f32 K1a 40.1, K1b
+// 47.7 us; f64 86.1, 89.3 us (the walk with `/` and no prefetch: 50.6,
+// 58.5; 89.7, 103.9). Tried and slower (PERF.md §6): the backward
+// kernels' staged chunks (2-step chunks on 2 threads per lane, rows
+// staged by cp.async, the carry on one thread) ran 50.3 / 57.9 us in f32
+// and 115 / 132 in f64: staging and the shared-memory hand-off add ~50%
+// more instructions than the extra warps hide. Registers (ptxas), f32: K1a
+// 71, K1b 63 (f64: 128, 110); no shared memory, no spill; with
+// kK1MinBlocks = 4 all 489 CUDA blocks of config 5a are resident at once
+// in f32 and f64. Outputs: those of the walk with `/`, bit for bit.
 
 #include "ctcrw_common.cuh"
 
 namespace ssde {
+
+// Lanes (one thread each) per CUDA block, CUDA blocks per SM asked of
+// ptxas, and division (smoothsde_tpu_torch/tile_sweep.py times variants
+// of these three lines).
+constexpr int kK1Threads = 128;
+constexpr int kK1MinBlocks = 4;
+using K1Div = BranchFreeDiv;
 
 template <typename T>
 struct StepRows {
@@ -58,7 +78,7 @@ template <typename T>
 __device__ __forceinline__ ParTerms<T> entering_terms(const StepRows<T>& s,
                                                       const T pv[5]) {
   const T Rm = T(1) - s.live * (T(1) - pv[4]);
-  return par_terms(pv[0], pv[1], pv[2], pv[3], Rm);
+  return par_terms<T, K1Div>(pv[0], pv[1], pv[2], pv[3], Rm);
 }
 
 template <typename T>
@@ -67,7 +87,7 @@ __device__ __forceinline__ void carry_par(const StepRows<T>& s, T pv[5]) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kK1Threads, kK1MinBlocks)
     filter_totals_kernel(const T* __restrict__ stack, const T* __restrict__ bd,
                          const T* __restrict__ hp, T p0_pos, T p0_vel,
                          T* __restrict__ totals, int L, int lanes) {
@@ -78,18 +98,21 @@ __global__ void __launch_bounds__(128)
 #pragma unroll
   for (int i = 0; i < 5; ++i) pv[i] = bd[(long long)i * lanes + t];
   Elem14<T> c = Elem14<T>::identity();
+  StepRows<T> nxt = read_rows(stack, 0, t, lanes);
   for (int l = 0; l < L; ++l) {
-    const StepRows<T> s = read_rows(stack, l, t, lanes);
+    const StepRows<T> s = nxt;
+    if (l + 1 < L) nxt = read_rows(stack, l + 1, t, lanes);  // in flight
     const ParTerms<T> w = entering_terms(s, pv);
-    const Elem14<T> e = elem_from_vals(w, s.y, s.rst, s.upd, p0_pos, p0_vel, h);
-    c = Elem14<T>::combine(c, e);
+    const Elem14<T> e = elem_from_vals<T, K1Div>(w, s.y, s.rst, s.upd,
+                                                 p0_pos, p0_vel, h);
+    c = Elem14<T>::template combine<K1Div>(c, e);
     carry_par(s, pv);
   }
   c.store(totals + t, lanes);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kK1Threads, kK1MinBlocks)
     filter_scan_kernel(const T* __restrict__ stack, const T* __restrict__ bd,
                        const T* __restrict__ prefix, const T* __restrict__ hp,
                        T p0_pos, T p0_vel, T* __restrict__ moments,
@@ -103,12 +126,16 @@ __global__ void __launch_bounds__(128)
   Elem14<T> c;
   c.load(prefix + t, lanes);
   T acc = T(0);
+  StepRows<T> nxt = read_rows(stack, 0, t, lanes);
   for (int l = 0; l < L; ++l) {
-    const StepRows<T> s = read_rows(stack, l, t, lanes);
+    const StepRows<T> s = nxt;
+    if (l + 1 < L) nxt = read_rows(stack, l + 1, t, lanes);  // in flight
     const ParTerms<T> w = entering_terms(s, pv);
-    const Elem14<T> e = elem_from_vals(w, s.y, s.rst, s.upd, p0_pos, p0_vel, h);
-    acc = acc + pred_llk(c, w, s.y, s.upd, h);  // BEFORE absorbing step l
-    c = Elem14<T>::combine(c, e);
+    const Elem14<T> e = elem_from_vals<T, K1Div>(w, s.y, s.rst, s.upd,
+                                                 p0_pos, p0_vel, h);
+    // BEFORE absorbing step l
+    acc = acc + pred_llk<T, K1Div>(c, w, s.y, s.upd, h);
+    c = Elem14<T>::template combine<K1Div>(c, e);
     T* m = moments + (long long)l * kMomRows * lanes + t;
     m[0] = c.b0;
     m[(long long)lanes] = c.b1;
@@ -120,6 +147,10 @@ __global__ void __launch_bounds__(128)
   llk[t] = acc;
 }
 
+inline dim3 k1_grid(int lanes) {
+  return dim3((lanes + kK1Threads - 1) / kK1Threads);
+}
+
 }  // namespace ssde
 
 #define SSDE_FILTER_ENTRY(T, SUFFIX)                                          \
@@ -127,7 +158,7 @@ __global__ void __launch_bounds__(128)
       const T* stack, const T* bd, const T* h, double p0_pos, double p0_vel,  \
       T* totals, int L, int lanes, void* stream) {                            \
     ssde::filter_totals_kernel<T>                                             \
-        <<<ssde::grid_for(lanes), ssde::kThreads, 0,                          \
+        <<<ssde::k1_grid(lanes), ssde::kK1Threads, 0,                         \
            static_cast<cudaStream_t>(stream)>>>(stack, bd, h, T(p0_pos),      \
                                                 T(p0_vel), totals, L, lanes); \
     SSDE_RETURN_LAUNCH_STATUS();                                              \
@@ -136,7 +167,7 @@ __global__ void __launch_bounds__(128)
       const T* stack, const T* bd, const T* prefix, const T* h,               \
       double p0_pos, double p0_vel, T* moments, T* llk, int L, int lanes,     \
       void* stream) {                                                         \
-    ssde::filter_scan_kernel<T><<<ssde::grid_for(lanes), ssde::kThreads, 0,   \
+    ssde::filter_scan_kernel<T><<<ssde::k1_grid(lanes), ssde::kK1Threads, 0,  \
                                   static_cast<cudaStream_t>(stream)>>>(       \
         stack, bd, prefix, h, T(p0_pos), T(p0_vel), moments, llk, L, lanes);  \
     SSDE_RETURN_LAUNCH_STATUS();                                              \

@@ -16,8 +16,10 @@ in its own process. Prints one JSON line with:
     (the fit's route), the element-space `llk2_analytic` "fused" and
     "pallas" (d = 2), and the OU_SSM (d = 2) and BM_SSM (d = 1) fused
     cores: the wall median over 100 calls before any profiling, device
-    busy and per-kernel device us per call (profiler, 10 calls), and the
-    wall median again after the profiler has run;
+    busy and per-kernel device us per call (profiler, 10 calls), the wall
+    median again after the profiler has run, and the gradient (exact
+    values: equal lists across two versions mean that every kernel of the
+    path gave the same bits);
   - with --sweep, "sweep": the CTCRW par-space measurement for
     STEPS_PER_LANE in (16, 32, 64);
   - with --fit, "fit": the config-5a CTCRW fit in f32 (chip_smoke.py's
@@ -196,14 +198,16 @@ def wall_us(fn, reps):
 def path_times(torch, which):
     """Per path: the wall median over 100 calls before any profiling,
     device busy and per-kernel device us per call (profiler, 10 calls),
-    and the wall median again after the profiler has run."""
+    the wall median again after the profiler has run, and the
+    gradient."""
     out = {}
     for name, fn in path_calls(torch, which).items():
         wall = wall_us(fn, 100)
         busy, per = profile(fn, 10, torch)
         out[name] = {"wall_median_us": wall, "device_busy_us": busy,
                      "device_us": per,
-                     "wall_median_after_profile_us": wall_us(fn, 100)}
+                     "wall_median_after_profile_us": wall_us(fn, 100),
+                     "grad": fn().tolist()}
     return out
 
 

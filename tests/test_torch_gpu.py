@@ -298,18 +298,24 @@ def _flat(out):
     return out.reshape(-1)
 
 
-def _backward_inputs(d, n, L, device):
-    """(stack, moments, suffix, h) of the par-space backward, f64 on the
-    card, from the plain forward over a two-track record with NaN rows and
-    irregular dt; cut to each lane's first L steps when L is given."""
-    obs, times, ids, par = _data(d, n, 70 + d)
+def _par_stack(d, n, seed, device):
+    """(stack, bd, h) of the par-space path, f64 on the card, over a
+    two-track record with NaN rows and irregular dt."""
+    obs, times, ids, par = _data(d, n, seed)
     data = prepare_ctcrw_data(obs, times, ids, dtype=torch.float64,
                               device=device)
-    p = cf.plan(d, n)
     stack, bd = cf.par_stack_from_data(torch.tensor(par, device=device),
                                        data.yd, data.dtv, data.resetf,
-                                       data.validf, p)
-    h = torch.tensor([0.04], dtype=torch.float64, device=device)
+                                       data.validf, cf.plan(d, n))
+    return stack, bd, torch.tensor([0.04], dtype=torch.float64,
+                                   device=device)
+
+
+def _backward_inputs(d, n, L, device):
+    """(stack, moments, suffix, h) of the par-space backward, f64 on the
+    card, from the plain forward; cut to each lane's first L steps when L
+    is given."""
+    stack, bd, h = _par_stack(d, n, 70 + d, device)
     tot = cf.filter_totals_plain(stack, bd, h, 1.0, 10.0)
     pre = cf.block_prefix_plain(tot, d, "filter", False)
     mom, _ = cf.filter_scan_plain(stack, bd, pre, h, 1.0, 10.0)
@@ -350,6 +356,43 @@ def test_backward_kernels_match_plain(cuda, d, n, L):
             errs[(k, dtype)] = float((g - r).abs().max()) / scale
     assert cf.LAUNCHES["ctcrw_smooth_totals"] == 2
     assert cf.LAUNCHES["ctcrw_score_scan"] == 2
+    bad = {k: e for k, e in errs.items()
+           if e > (1e-10 if k[1] == torch.float64 else 1e-4)}
+    assert not bad, errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 2, 3])
+@pytest.mark.parametrize("n,L", [(80, None), (2048, None), (5000, None),
+                                 (20001, None), (5000, 1), (5000, 3)])
+def test_forward_kernels_match_plain(cuda, d, n, L):
+    """K1a and K1b alone against their plain versions: f64 within 1e-10
+    of the output's scale, f32 (on the inputs rounded to f32) against the
+    f64 plain version within 1e-4, the f32 bar of docs/ACCURACY.md. The
+    shapes of test_backward_kernels_match_plain: lanes below, at and across
+    the 128-lane CUDA block, L = 1 (no next step to prefetch) and 3; the
+    prefix from the plain K1a and K2 over the (cut) stack. One launch of
+    each per call."""
+    stack, bd, h = _par_stack(d, n, 80 + d, cuda)
+    if L is not None:
+        stack = stack[:L].contiguous()
+    tot = cf.filter_totals_plain(stack, bd, h, 1.0, 10.0)
+    pre = cf.block_prefix_plain(tot, d, "filter", False)
+    ref = {"K1a": tot,
+           "K1b": cf.filter_scan_plain(stack, bd, pre, h, 1.0, 10.0)}
+    cf.reset_launches()
+    errs = {}
+    for dtype in (torch.float64, torch.float32):
+        s, b, p, hh = (t.to(dtype) for t in (stack, bd, pre, h))
+        got = {"K1a": cf.filter_totals(s, b, hh, 1.0, 10.0),
+               "K1b": cf.filter_scan(s, b, p, hh, 1.0, 10.0)}
+        for k, out in got.items():
+            g, r = _flat(out).double(), _flat(ref[k])
+            assert bool(torch.isfinite(g).all()), (k, dtype)
+            scale = max(1.0, float(r.abs().max()))
+            errs[(k, dtype)] = float((g - r).abs().max()) / scale
+    assert cf.LAUNCHES["ctcrw_filter_totals"] == 2
+    assert cf.LAUNCHES["ctcrw_filter_scan"] == 2
     bad = {k: e for k, e in errs.items()
            if e > (1e-10 if k[1] == torch.float64 else 1e-4)}
     assert not bad, errs
