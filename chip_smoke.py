@@ -36,6 +36,13 @@ non-zero before the final line:
      versions, at the shapes and with the bars of 2c (lanes below, at and
      across their 128-lane CUDA block; L = 1 leaves no next step to
      prefetch);
+     2e. the scalar-state kernels D1a, D1b, D3a and D3b alone against
+     their plain versions (BM_SSM at d = 1, OU_SSM at d = 2 and 3), at the
+     shapes and with the bars of 2c (lanes below, at and across D1a's
+     32-lane and the walks' 128-lane CUDA blocks; L = 1 leaves three of
+     D1a's four segments empty and no next step to load ahead), and at
+     L = 5 and 27 (D1a's last segments short: 2, 2, 1, 0 and 7, 7, 7, 6
+     steps);
   3. the CTCRW slice at full size: a 1M-step 2-D CTCRW (dt = 0.1,
      tau = 3, nu = 1, sigma_obs = 0.1, seed 5), simulated here with
      NumPy, fitted by `SDE(..., device="cuda").fit()` in f32; requires
@@ -689,8 +696,39 @@ def backward_inputs(torch, d, n, L):
     return stack, mom, suffix, h
 
 
-# the kernels alone (phases 2c, 2d): each call takes an op table of
-# ops/ctcrw_fused.py (kernels or plain) and its inputs
+def diag_inputs(torch, d, n, L, typ=None):
+    """(forward stack, backward stack, prefix, moments, suffix, h) of the
+    scalar-state path of `typ` (by default BM_SSM at d = 1, OU_SSM above),
+    f64 on the card, over two_track_data; cut to each lane's first L steps
+    when L is given; the prefix, moments and suffix from the plain D1a,
+    K2, D1b, D3a and K2 (reverse) over the (cut) stacks."""
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+    from smoothsde_tpu_torch.ops import diag_fused as df
+
+    dev = torch.device("cuda")
+    typ = typ or ("BM_SSM" if d == 1 else "OU_SSM")
+    n_extra = 1 if typ == "BM_SSM" else 2
+    obs, times, ids, par = two_track_data(d, n, seed=90 + d)
+    sysd = df.diag_system(typ, torch.tensor(par[:, :d + n_extra],
+                                            device=dev),
+                          obs, times, ids, 0.2)
+    rows = (sysd.t, sysd.q, sysd.c, sysd.yd, sysd.resetf, sysd.updatef,
+            cf.plan(d, n))
+    fst, bst = df.forward_stack(*rows), df.backward_stack(*rows)
+    if L is not None:
+        fst, bst = fst[:L].contiguous(), bst[:L].contiguous()
+    h = sysd.h.reshape(1)
+    pre = cf.block_prefix_plain(df.diag_filter_totals_plain(fst, h, P0_DIAG),
+                                d, "diag_filter", False)
+    mom, _ = df.diag_filter_scan_plain(fst, pre, h, P0_DIAG)
+    suf = cf.block_prefix_plain(df.diag_smooth_totals_plain(bst, mom), d,
+                                "diag_smooth", True)
+    return fst, bst, pre, mom, suf, h
+
+
+# the kernels alone (phases 2c, 2d, 2e; D_ALONE also in
+# tests/test_torch_gpu.py): each call takes an op table (kernels or plain)
+# of ops/ctcrw_fused.py or ops/diag_fused.py and its inputs
 K3_ALONE = {
     "ctcrw_smooth_totals": lambda o, x: o.smooth_totals(x[0], x[1]),
     "ctcrw_score_scan": lambda o, x: o.score_scan(*x, P0_POS),
@@ -700,26 +738,36 @@ K1_ALONE = {
                                                         P0_POS, P0_VEL),
     "ctcrw_filter_scan": lambda o, x: o.filter_scan(*x, P0_POS, P0_VEL),
 }
+D_ALONE = {
+    "diag_filter_totals": lambda o, x: o.filter_totals(x[0], x[5], P0_DIAG),
+    "diag_filter_scan": lambda o, x: o.filter_scan(x[0], x[2], x[5],
+                                                   P0_DIAG),
+    "diag_smooth_totals": lambda o, x: o.smooth_totals(x[1], x[3]),
+    "diag_score_scan": lambda o, x: o.score_scan(x[1], x[3], x[4], x[5],
+                                                 P0_DIAG),
+}
 
 
-def phase_alone(torch, tag, make_inputs, calls):
-    """Phases 2c (K3a, K3b: backward_inputs) and 2d (K1a, K1b:
-    forward_inputs): kernels alone against their plain versions on the
-    card, d in {1, 2, 3}, n in {80, 2048, 5000, 20001} (lanes below, at
-    and across K3's 64-lane tile and K1's 128-lane block, not a multiple
-    of 4) and n = 5000 cut to L in {1, 3} steps per lane (below and across
-    K3's 2-step chunk): f64 within 1e-10 of the output's scale, f32 (on the
-    inputs rounded to f32) against the f64 plain version within 1e-4 (the
-    f32 bar: f32 forming the 2x2 inverses and K3's Qinv E Qinv score on
-    short intervals costs up to ~5e-5 of the scale here, in the
-    one-thread-per-lane walks too). Returns the worst errors."""
-    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
-
-    ops_k, ops_p = cf.OPS["kernels"], cf.OPS["plain"]
+def phase_alone(torch, tag, make_inputs, calls, ops, cuts=(1, 3)):
+    """Phases 2c (K3a, K3b: backward_inputs), 2d (K1a, K1b:
+    forward_inputs) and 2e (D1a, D1b, D3a, D3b: diag_inputs): kernels
+    alone, through the op table `ops` ({"kernels": ..., "plain": ...}),
+    against their plain versions on the card, d in {1, 2, 3}, n in {80,
+    2048, 5000, 20001} (lanes below, at and across K3's 64-lane tile,
+    D1a's 32-lane and the walks' 128-lane blocks, not a multiple of 4) and
+    n = 5000 cut to the L in `cuts` steps per lane (1 and 3: below and
+    across K3's 2-step chunk; 2e adds 5 and 27, D1a's four segments then
+    of 2, 2, 1, 0 and 7, 7, 7, 6 steps): f64 within 1e-10 of the output's
+    scale, f32 (on the inputs rounded to f32) against the f64 plain
+    version within 1e-4 (the f32 bar: f32 forming the 2x2 inverses and
+    K3's Qinv E Qinv score on short intervals costs up to ~5e-5 of the
+    scale here, in the one-thread-per-lane walks too). Returns the worst
+    errors."""
+    ops_k, ops_p = ops["kernels"], ops["plain"]
     worst = {f"{k}_{dt}": 0.0 for k in calls for dt in ("f64", "f32")}
     shapes = [(d, n, None) for d in (1, 2, 3)
               for n in (80, 2048, 5000, 20001)]
-    shapes += [(d, 5000, L) for d in (1, 2, 3) for L in (1, 3)]
+    shapes += [(d, 5000, L) for d in (1, 2, 3) for L in cuts]
     for d, n, L in shapes:
         x64 = make_inputs(torch, d, n, L)
         ref = {name: call(ops_p, x64) for name, call in calls.items()}
@@ -1174,6 +1222,7 @@ def main():
     from smoothsde_tpu_torch.infer.fit import make_val_grad
     from smoothsde_tpu_torch.ops import _kernels
     from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+    from smoothsde_tpu_torch.ops import diag_fused as df
     from smoothsde_tpu_torch.ops.diag_fused import (
         DiagFusedCore,
         DiagPlainCore,
@@ -1224,10 +1273,14 @@ def main():
     k2 = phase_k2(torch)
     log("[2c] the backward kernels K3a and K3b alone vs their plain "
         "versions, around their tile and chunk")
-    k3 = phase_alone(torch, "2c", backward_inputs, K3_ALONE)
+    k3 = phase_alone(torch, "2c", backward_inputs, K3_ALONE, cf.OPS)
     log("[2d] the forward kernels K1a and K1b alone vs their plain "
         "versions, around their CUDA block")
-    k1 = phase_alone(torch, "2d", forward_inputs, K1_ALONE)
+    k1 = phase_alone(torch, "2d", forward_inputs, K1_ALONE, cf.OPS)
+    log("[2e] the scalar-state kernels D1a, D1b, D3a and D3b alone vs their "
+        "plain versions, around their CUDA blocks and D1a's segments")
+    kd = phase_alone(torch, "2e", diag_inputs, D_ALONE, df.OPS,
+                     cuts=(1, 3, 5, 27))
 
     log("[3] config 5a: 1M-step 2-D CTCRW fit on the card, f32")
     t = time.time()
@@ -1420,6 +1473,7 @@ def main():
     fit_line["kernel_checks_diag"] = worst_diag
     fit_line["kernel_checks_k3"] = k3
     fit_line["kernel_checks_k1"] = k1
+    fit_line["kernel_checks_diag_alone"] = kd
     fit_line["accuracy_audit_point"] = audit
     for fit, times in ((ou, ou_times), (bm, bm_times)):
         fit_line[fit["typ"]] = {"fit": fit["summary"], **times}

@@ -8,26 +8,43 @@
 // versions: diag_smooth_totals_plain and diag_score_scan_plain in
 // smoothsde_tpu_torch/ops/diag_fused.py.
 //
-// Design. One thread per lane walks its L steps from last to first. At
-// slot l it forms the smoothing element from the filtered moments of the
-// forward pass and the transition LEAVING l (tn, qn, cn), and composes
-// it outside its accumulator (_comb1_rev). D3b then has the smoothed
-// moments at l + 1 (the accumulator before the step) and at l (after
-// it), from which the Fisher-identity score of the transition follows in
-// closed form: with the sanitized inverse qi = 1 / (TVn q + 1 - TVn) and
-// the lag-one covariance Ps1 * G, tbar = qi (E[x1 x] - t E[x^2] - c m),
-// cbar = qi r, qbar = (qi E[r^2] qi - qi) / 2, all masked by TVn. The y
-// cotangent adds the reset prior's -resid / p0 at track starts. The
-// cotangents stay in LEAVING indexing; the gbar scaling, the shift to
-// entering indexing and the sums over dims happen outside, in torch.
+// The math. Walking a lane from its last step to its first, slot l forms
+// the smoothing element from the filtered moments of the forward pass
+// and the transition LEAVING l (tn, qn, cn), and composes it outside the
+// accumulator (_comb1_rev). D3b then has the smoothed moments at l + 1
+// (the accumulator before the step) and at l (after it), from which the
+// Fisher-identity score of the transition follows in closed form: with
+// the sanitized inverse qi = 1 / (TVn q + 1 - TVn) and the lag-one
+// covariance Ps1 * G, tbar = qi (E[x1 x] - t E[x^2] - c m), cbar = qi r,
+// qbar = (qi E[r^2] qi - qi) / 2, all masked by TVn. The y cotangent adds
+// the reset prior's -resid / p0 at track starts. The cotangents stay in
+// LEAVING indexing; the gbar scaling, the shift to entering indexing and
+// the sums over dims happen outside, in torch.
 //
-// What bounds it on the H100. D3a reads 4 stack rows and 2 moments per
+// What bounds them on the H100. D3a reads 4 stack rows and 2 moments per
 // lane-step, D3b all 8 rows and the moments and writes 4 cotangents: at
-// 1M steps, d = 2, f32 that is 48 MB and 112 MB, 14 and 33 us at
-// 3.35 TB/s. The serial chain is L = 32 dependent 3-comp combines (4
-// flops) per thread; the element (one division) and the score (~40
-// flops, two divisions) do not depend on the carry and overlap it, so
-// bytes should bound both.
+// 1M steps, d = 2, f32 (the OU_SSM fit: 62,500 lanes of L = 32) that is
+// 49 and 113 MB, 14.6 and 33.7 us at 3.35 TB/s: bytes, if enough loads
+// are in flight. D3a walks one thread per lane.
+//
+// D3b, first written as one thread per lane with each step loading its
+// own rows and then computing, was bound by latency, not bytes: 83.9 us at
+// d = 2 and 71.4 at d = 1 for half the bytes (PERF.md §6), with ~15 warps
+// an SM (7 at d = 1), each waiting on one step's 10 loads at a time. Now
+// the rows of step l - 1 are loaded while step l computes: 88.9 -> 46.3
+// us at d = 2 and 82.2 -> 31.2 at d = 1, f32; f64 113.5 -> 78.1 and 94.8
+// -> 47.0 (CUDA events, inputs read cold, on an H100 SXM at 700 W;
+// tile_sweep.py, PERF.md §6). Registers (ptxas): 40 (f64 78), no spill
+// (the old walk: 40 with a spill). Outputs: the old walk's, bit for bit.
+// Measured and not kept (same section): several threads per lane (each
+// lane's steps in 2, 4 or 8 segments, a totals pass, an exclusive suffix
+// scan over the segments seeded with K2's suffix, a rescan; the segment's
+// element inputs held in registers between the passes or loaded again)
+// was faster only at d = 1 in f32 (25.8 vs 31.2 us), no faster at d = 2
+// (46.8-52.7 vs 47.0) and slower in f64 (99-174 vs 78.4); loading 2-4
+// steps ahead, 64 lanes a block or a register cap for 8 blocks an SM
+// were no faster; ctcrw_common.cuh's BranchFreeDiv in every division was
+// 0-3% slower than `/`.
 
 #include "diag_common.cuh"
 
@@ -54,6 +71,31 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T>
+struct DiagBwdRow {
+  T tn, qn, cn, te, TVn, y, U, R, mf, Pf;
+};
+
+template <typename T>
+__device__ __forceinline__ DiagBwdRow<T> read_bwd(
+    const T* __restrict__ stack, const T* __restrict__ moments, int l, int i,
+    int lanes) {
+  const T* row = stack + (long long)l * kDiagBwdRows * lanes + i;
+  const T* m = moments + (long long)l * kDiagMomRows * lanes + i;
+  DiagBwdRow<T> r;
+  r.tn = row[0];
+  r.qn = row[(long long)lanes];
+  r.cn = row[2LL * lanes];
+  r.te = row[3LL * lanes];
+  r.TVn = row[4LL * lanes];
+  r.y = row[5LL * lanes];
+  r.U = row[6LL * lanes];
+  r.R = row[7LL * lanes];
+  r.mf = m[0];
+  r.Pf = m[(long long)lanes];
+  return r;
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     diag_score_scan_kernel(const T* __restrict__ stack,
                            const T* __restrict__ moments,
@@ -67,26 +109,21 @@ __global__ void __launch_bounds__(kThreads)
   Smooth3<T> acc;
   acc.load(suffix + i, lanes);
   T ha = T(0);
+  DiagBwdRow<T> nxt;
+  if (L > 0) nxt = read_bwd(stack, moments, L - 1, i, lanes);
   for (int l = L - 1; l >= 0; --l) {
-    const T* row = stack + (long long)l * kDiagBwdRows * lanes + i;
-    const T* m = moments + (long long)l * kDiagMomRows * lanes + i;
-    const T tn = row[0];
-    const T qn = row[(long long)lanes];
-    const T cn = row[2LL * lanes];
-    const T te = row[3LL * lanes];
-    const T TVn = row[4LL * lanes];
-    const T y = row[5LL * lanes];
-    const T U = row[6LL * lanes];
-    const T R = row[7LL * lanes];
+    const DiagBwdRow<T> r = nxt;
+    if (l > 0) nxt = read_bwd(stack, moments, l - 1, i, lanes);  // in flight
     // smoothed at l + 1 is the incoming accumulator
     const T ms1 = acc.g, Ps1 = acc.L;
     T G;
     const Smooth3<T> e =
-        smooth_elem1(tn, qn, cn, m[0], m[(long long)lanes], te, G);
+        smooth_elem1(r.tn, r.qn, r.cn, r.mf, r.Pf, r.te, G);
     acc = Smooth3<T>::combine(acc, e);
     const T ms = acc.g, Ps = acc.L;  // smoothed at l
+    const T tn = r.tn, cn = r.cn;
 
-    const T qs = TVn * qn + (T(1) - TVn);  // sanitized q inverse
+    const T qs = r.TVn * r.qn + (T(1) - r.TVn);  // sanitized q inverse
     const T qi = T(1) / qs;
     const T C = Ps1 * G;  // lag-one Cov(x_{l+1}, x_l | y)
     const T Exx = Ps + ms * ms;
@@ -97,14 +134,14 @@ __global__ void __launch_bounds__(kThreads)
     const T Err = Ps1 + tn * tn * Ps - T(2) * tn * C + rb * rb;
     const T qb = T(0.5) * (qi * Err * qi - qi);
     // obs + prior score at l (reset prior N(y, p0))
-    const T resid = y - ms;
-    const T yb = U * (-resid / h) + R * (-resid / p0);
-    ha = ha + U * (T(0.5) * (resid * resid + Ps) / (h * h) - T(0.5) / h);
+    const T resid = r.y - ms;
+    const T yb = r.U * (-resid / h) + r.R * (-resid / p0);
+    ha = ha + r.U * (T(0.5) * (resid * resid + Ps) / (h * h) - T(0.5) / h);
 
     T* c = cot + (long long)l * kDiagCotRows * lanes + i;
-    c[0] = TVn * tb;
-    c[(long long)lanes] = TVn * qb;
-    c[2LL * lanes] = TVn * cb;
+    c[0] = r.TVn * tb;
+    c[(long long)lanes] = r.TVn * qb;
+    c[2LL * lanes] = r.TVn * cb;
     c[3LL * lanes] = yb;
   }
   hbar[i] = ha;

@@ -8,21 +8,41 @@
 // versions: diag_filter_totals_plain and diag_filter_scan_plain in
 // smoothsde_tpu_torch/ops/diag_fused.py.
 //
-// Design. One thread owns one lane (a contiguous block of L steps of one
-// response dim) and walks its steps in order: each step's element comes
-// from its own stack slot (t, q, c of the entering transition, y and the
-// reset / update masks), so no carry besides the element is needed. The
-// stack is (L, 6, lanes), so at every step a warp reads 32 neighbouring
-// values of each row (coalesced).
+// The stack is (L, 6, lanes): each step's element comes from its own
+// slot (t, q, c of the entering transition, y and the reset / update
+// masks), so no carry besides the element is needed, and a warp reading
+// 32 neighbouring lanes of one row is coalesced.
 //
-// What bounds it on the H100. Per lane-step D1a reads 6 values and does
-// one scalar combine (~15 flops, two divisions with the element); D1b
-// also writes 2 moments and takes one log. At 1M steps, d = 2, f32 (2M
-// lane-steps) that is 48 MB and 64 MB, 14 and 19 us at the card's
-// 3.35 TB/s; the serial chain of L = 32 dependent combines per thread is
-// short, so bytes should bound both. The simple design spends no shared
-// memory: one coalesced pass over the stack per kernel, the carry in
-// registers.
+// What bounds them on the H100. Per lane-step D1a reads 6 values and does
+// one 5-comp combine (~15 flops) with the element (three divisions); D1b
+// also writes 2 moments and takes one log. At 1M steps, d = 2, f32 (the
+// OU_SSM fit: 62,500 lanes of L = 32) that is 49 and 66 MB, 14.7 and 19.6
+// us at the card's 3.35 TB/s: bytes, if enough loads are in flight.
+//
+// D1a, first written as one thread per lane walking its 32 steps (the
+// design D1b keeps), was bound by latency, not bytes: 38.1 us at d = 2
+// and 36.9 at d = 1 for half the bytes, ~1.15 us a step whatever the lane
+// count (PERF.md §6). Each step waited on its own rows, and the ~15 warps
+// an SM held at d = 2 (7 at d = 1) kept too few loads in flight to cover
+// the HBM latency. Now each lane's steps are cut into kD1Segs segments of
+// consecutive steps, one thread each: kD1Segs times the warps and loads
+// in flight, a chain of 32 / kD1Segs steps. Each thread loads its next
+// step's rows while the current one computes and composes its segment's
+// total from the identity; the block's threads leave their totals in
+// shared memory, and the lane's first thread combines them in time order
+// (earlier segment on the left) and stores the lane's total. A warp
+// holds 32 neighbouring lanes of one segment, so every load stays
+// coalesced, and the hand-off takes one barrier. The associativity of
+// the combine makes the total the walk's up to rounding: f32 moves in
+// its last bits. Measured on an H100 SXM (700 W; CUDA events, inputs read
+// cold; tile_sweep.py, PERF.md §6), f32: 38.1 -> 22.4 us at d = 2, 35.5 ->
+// 12.1 at d = 1; f64 47.9 -> 39.8 and 41.6 -> 23.5. Registers (ptxas):
+// 40 (f64 70), no spill, 12 (f64 7) CUDA blocks of 128 threads an SM.
+// Not kept: the walk with the next rows in flight alone (25.5 / 21.5 us),
+// 2 segments (20.4 / 14.5), 8 segments (22.7 / 14.1), 64 lanes a block
+// (23.0 / 12.1), a register cap for 8 blocks an SM (spills in f64),
+// loading 2-4 steps ahead (no faster), ctcrw_common.cuh's BranchFreeDiv
+// in place of `/` (the same time).
 
 #include "diag_common.cuh"
 
@@ -47,20 +67,52 @@ __device__ __forceinline__ DiagFwdRow<T> read_fwd(const T* __restrict__ stack,
   return s;
 }
 
+// D1a geometry: segments (threads) per lane and lanes per CUDA block
+// (smoothsde_tpu_torch/tile_sweep.py times variants of these two lines).
+constexpr int kD1Segs = 4;
+constexpr int kD1Lanes = 32;
+constexpr int kD1Threads = kD1Segs * kD1Lanes;
+
+// Steps [lo, hi) of segment s of a lane's L: ceil(L / kD1Segs) steps
+// each, the last ones short or empty.
+__device__ __forceinline__ void segment_of(int s, int L, int& lo, int& hi) {
+  const int len = (L + kD1Segs - 1) / kD1Segs;
+  lo = min(L, s * len);
+  hi = min(L, lo + len);
+}
+
+// Thread t of a CUDA block walks segment t / kD1Lanes of lane t %
+// kD1Lanes: a warp reads 32 neighbouring lanes of one step.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kD1Threads)
     diag_filter_totals_kernel(const T* __restrict__ stack,
                               const T* __restrict__ hp, T p0,
                               T* __restrict__ totals, int L, int lanes) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= lanes) return;
-  const T h = hp[0];
+  __shared__ T part[Elem5<T>::N * kD1Threads];  // [component][segment][lane]
+  const int j = threadIdx.x % kD1Lanes, s = threadIdx.x / kD1Lanes;
+  const int i = blockIdx.x * kD1Lanes + j;
+  int lo, hi;
+  segment_of(s, L, lo, hi);
   Elem5<T> c = Elem5<T>::identity();
-  for (int l = 0; l < L; ++l) {
-    const DiagFwdRow<T> s = read_fwd(stack, l, i, lanes);
-    c = Elem5<T>::combine(c, elem1(s.t, s.q, s.c, s.y, s.rst, s.upd, h, p0));
+  if (i < lanes && lo < hi) {
+    const T h = hp[0];
+    DiagFwdRow<T> nxt = read_fwd(stack, lo, i, lanes);
+    for (int l = lo; l < hi; ++l) {
+      const DiagFwdRow<T> r = nxt;
+      if (l + 1 < hi) nxt = read_fwd(stack, l + 1, i, lanes);  // in flight
+      c = Elem5<T>::combine(c, elem1(r.t, r.q, r.c, r.y, r.rst, r.upd, h, p0));
+    }
   }
-  c.store(totals + i, lanes);
+  c.store(part + s * kD1Lanes + j, kD1Threads);
+  __syncthreads();
+  if (s == 0 && i < lanes) {  // the segments' totals in time order
+    for (int k = 1; k < kD1Segs; ++k) {
+      Elem5<T> y;
+      y.load(part + k * kD1Lanes + j, kD1Threads);
+      c = Elem5<T>::combine(c, y);
+    }
+    c.store(totals + i, lanes);
+  }
 }
 
 template <typename T>
@@ -99,7 +151,7 @@ __global__ void __launch_bounds__(kThreads)
       const T* stack, const T* h, double p0, T* totals, int L, int lanes,      \
       void* stream) {                                                          \
     ssde::diag_filter_totals_kernel<T>                                         \
-        <<<ssde::grid_for(lanes), ssde::kThreads, 0,                           \
+        <<<(lanes + ssde::kD1Lanes - 1) / ssde::kD1Lanes, ssde::kD1Threads, 0, \
            static_cast<cudaStream_t>(stream)>>>(stack, h, T(p0), totals, L,    \
                                                 lanes);                        \
     SSDE_RETURN_LAUNCH_STATUS();                                               \

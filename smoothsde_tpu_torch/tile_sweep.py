@@ -1,33 +1,46 @@
-"""Times variants of the CTCRW forward kernels K1a / K1b
-(csrc/ctcrw_filter.cu, family k1) or backward kernels K3a / K3b
-(csrc/ctcrw_backward.cu, family k3) on one GPU.
+"""Times variants of a family of the port's kernels on one GPU: the CTCRW
+forward kernels K1a / K1b (csrc/ctcrw_filter.cu, family k1), the CTCRW
+backward kernels K3a / K3b (csrc/ctcrw_backward.cu, family k3), or the
+scalar-state kernels D1a, D1b, D3a and D3b (csrc/diag_filter.cu and
+csrc/diag_backward.cu, family diag).
 
-    python3 smoothsde_tpu_torch/tile_sweep.py --family k1|k3 [--parent DIR]
-        [--sass] [--variant NAME=GEOMETRY[;NVCC FLAGS] ...]
+    python3 smoothsde_tpu_torch/tile_sweep.py --family k1|k3|diag
+        [--parent DIR] [--sass] [--variant NAME=GEOMETRY[;NVCC FLAGS] ...]
 
-Compiles the family's source of this checkout once per variant, from a
-copy with its tile lines rewritten ("default": the source as it is), and,
-with --parent, the same source of another checkout (e.g. the design
-before this one) as the variant "parent" (any checkout: GEOMETRY
-"@DIR"); each into its own library under build/tile_sweep/<family>/,
-with `-Xptxas -v`. Then, at config 5a's shapes (1M steps, d = 2: 62,500
-lanes of L = 32; chip_smoke.py's `config5a` data, log tau = log 3,
-log nu = 0, mu = 0, sigma_obs = 0.1; the prefix, moments and suffix from
-the port's own kernels), for f32 and f64, each variant's two kernels:
-device us per launch (CUDA events over 100 launches, the variants in
-turn, forward then backward, twice), the count of output values that
-differ from the first variant's (the parent with --parent) and the
-largest difference (0 and 0 when the rounding is unchanged), and the max
-abs error against the plain version in f64 over the output's scale.
+Compiles the family's sources of this checkout once per variant, from
+copies with their tile lines rewritten ("default": the sources as they
+are), and, with --parent, the same sources of another checkout (e.g. the
+parent commit, unpacked with `git archive`) as the variant "parent" (any
+checkout: GEOMETRY "@DIR"); each variant into its own library under
+build/tile_sweep/<family>/, with `-Xptxas -v`. Then, for f32 and f64, at
+the family's shapes, each variant's kernels: device us per launch (CUDA
+events over 100 launches cycling through copies of the inputs that hold
+256 MB, so that no launch finds them in the L2; the variants in turn,
+the kernels in order, twice: a same-call A/B against the parent), the
+count of output values that differ from the first variant's (the parent
+with --parent) and the largest difference (0 and 0 when the rounding is
+unchanged), and the max abs error against the plain version in f64 over
+the output's scale.
 ptxas's registers, spills and the resident CUDA blocks per SM they and
 the shared memory allow are printed beside; with --sass, each kernel's
 instruction count by opcode (cuobjdump -sass; static counts).
+
+Shapes (the inputs of each kernel's plain version; prefixes, moments and
+suffixes from the port's own kernels):
+  k1, k3: config 5a (1M steps, d = 2: 62,500 lanes of L = 32;
+      chip_smoke.py's `config5a` data, log tau = log 3, log nu = 0,
+      mu = 0, sigma_obs = 0.1);
+  diag: the OU_SSM fit's (phase 3b: chip_smoke.py's `ou_ssm_1m`, d = 2,
+      62,500 lanes) and the BM_SSM fit's (phase 3c: `bm_ssm_1m`, d = 1,
+      31,250 lanes), each at its simulation truth, sigma_obs = 0.1.
 
 GEOMETRY is the values of the family's tile lines, comma-separated:
   k1: THREADS,MINB,DIV (lanes = threads per CUDA block, CUDA blocks per
       SM asked of ptxas, BranchFreeDiv or IeeeDiv);
   k3: TILE,STEPS,MINB,DIV (lanes per CUDA block, steps per chunk =
       threads per lane, MINB and DIV as for k1);
+  diag: S,LANES (D1a: segments = threads per lane, lanes per CUDA
+      block; diag_backward.cu has no tile lines and builds as it is);
 or "default" or "@DIR"; extra nvcc flags (e.g. --use_fast_math) go after
 a ";". One JSON line.
 """
@@ -44,35 +57,62 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 P0_POS, P0_VEL = 1.0, 10.0
+# per family: its sources, each with the names of its tile lines in the
+# order of GEOMETRY (none: the source builds as it is), its kernels
+# (entry points of ops/_kernels.py, each with its source) and the default
+# variants
 FAMILIES = {
-    "k1": {"source": "ctcrw_filter.cu",
-           "lines": ("kK1Threads", "kK1MinBlocks", "K1Div"),
-           "kernels": ("filter_totals", "filter_scan"),
+    "k1": {"sources": {"ctcrw_filter.cu": ("kK1Threads", "kK1MinBlocks",
+                                           "K1Div")},
+           "kernels": {"ctcrw_filter_totals": "ctcrw_filter.cu",
+                       "ctcrw_filter_scan": "ctcrw_filter.cu"},
            "variants": ["default=default", "ieee_div=128,4,IeeeDiv",
                         "free_regs=128,1,BranchFreeDiv",
                         "threads64=64,8,BranchFreeDiv",
                         "threads32=32,16,BranchFreeDiv"]},
-    "k3": {"source": "ctcrw_backward.cu",
-           "lines": ("kK3Tile", "kK3Steps", "kK3MinBlocks", "K3Div"),
-           "kernels": ("smooth_totals", "score_scan"),
+    "k3": {"sources": {"ctcrw_backward.cu": ("kK3Tile", "kK3Steps",
+                                             "kK3MinBlocks", "K3Div")},
+           "kernels": {"ctcrw_smooth_totals": "ctcrw_backward.cu",
+                       "ctcrw_score_scan": "ctcrw_backward.cu"},
            "variants": ["default=default", "ieee_div=64,2,8,IeeeDiv",
                         "free_regs=64,2,1,BranchFreeDiv",
                         "one_step=128,1,4,BranchFreeDiv"]},
+    "diag": {"sources": {
+                 "diag_filter.cu": ("kD1Segs", "kD1Lanes"),
+                 "diag_backward.cu": ()},
+             "kernels": {"diag_filter_totals": "diag_filter.cu",
+                         "diag_filter_scan": "diag_filter.cu",
+                         "diag_smooth_totals": "diag_backward.cu",
+                         "diag_score_scan": "diag_backward.cu"},
+             "variants": ["default=default", "walk=1,128", "segs2=2,32",
+                          "segs8=8,32", "lanes64=4,64"]},
 }
 # each kernel's inputs (the plain version's arguments) and output shapes
 ARGS = {
-    "filter_totals": ("stack", "bd", "h", "p0_pos", "p0_vel"),
-    "filter_scan": ("stack", "bd", "prefix", "h", "p0_pos", "p0_vel"),
-    "smooth_totals": ("stack", "mom"),
-    "score_scan": ("stack", "mom", "suffix", "h", "p0_pos"),
+    "ctcrw_filter_totals": ("stack", "bd", "h", "p0_pos", "p0_vel"),
+    "ctcrw_filter_scan": ("stack", "bd", "prefix", "h", "p0_pos", "p0_vel"),
+    "ctcrw_smooth_totals": ("stack", "mom"),
+    "ctcrw_score_scan": ("stack", "mom", "suffix", "h", "p0_pos"),
+    "diag_filter_totals": ("fwd", "h", "p0"),
+    "diag_filter_scan": ("fwd", "prefix", "h", "p0"),
+    "diag_smooth_totals": ("bwd", "mom"),
+    "diag_score_scan": ("bwd", "mom", "suffix", "h", "p0"),
 }
 OUTS = {
-    "filter_totals": lambda L, lanes: [(14, lanes)],
-    "filter_scan": lambda L, lanes: [(L, 5, lanes), (lanes,)],
-    "smooth_totals": lambda L, lanes: [(9, lanes)],
-    "score_scan": lambda L, lanes: [(L, 4, lanes), (lanes,)],
+    "ctcrw_filter_totals": lambda L, lanes: [(14, lanes)],
+    "ctcrw_filter_scan": lambda L, lanes: [(L, 5, lanes), (lanes,)],
+    "ctcrw_smooth_totals": lambda L, lanes: [(9, lanes)],
+    "ctcrw_score_scan": lambda L, lanes: [(L, 4, lanes), (lanes,)],
+    "diag_filter_totals": lambda L, lanes: [(5, lanes)],
+    "diag_filter_scan": lambda L, lanes: [(L, 2, lanes), (lanes,)],
+    "diag_smooth_totals": lambda L, lanes: [(3, lanes)],
+    "diag_score_scan": lambda L, lanes: [(L, 4, lanes), (lanes,)],
 }
 SMEM_SM, REGS_SM, THREADS_SM = 228 * 1024, 65536, 2048  # H100 per SM
+# each kernel's inputs are cloned until the copies hold this many bytes,
+# and the timed launches cycle through them: every launch reads its
+# inputs from device memory, not from the 50 MB L2 the last one filled
+COLD_BYTES = 256 * 2**20
 
 
 def tile_pattern(name):
@@ -81,14 +121,18 @@ def tile_pattern(name):
     return rf"(constexpr int {name} = )(\d+);"
 
 
+def tile_value(name, text):
+    return text if name.endswith("Div") else int(text)
+
+
 def tile_lines(text, names):
-    """The source's values of the tile lines `names`, or None for a
-    source without them."""
-    found = [re.search(tile_pattern(k), text) for k in names]
+    """The values of the tile lines `names` in a source's text, or None
+    for a source without them."""
+    found = [re.search(tile_pattern(name), text) for name in names]
     if not all(found):
         return None
-    return tuple(m.group(2) if k.endswith("Div") else int(m.group(2))
-                 for k, m in zip(names, found))
+    return tuple(tile_value(name, m.group(2))
+                 for name, m in zip(names, found))
 
 
 def with_tile_lines(text, names, geo):
@@ -99,10 +143,10 @@ def with_tile_lines(text, names, geo):
     return text
 
 
-def build(name, src, flags, out_root):
-    """Start nvcc on src (headers from its own directory, else this
-    checkout's csrc/) into out_root/name/libsweep.so; returns (library
-    path, process)."""
+def build(name, srcs, flags, out_root):
+    """Start nvcc on the sources srcs (headers from each one's own
+    directory, else this checkout's csrc/) into out_root/name/libsweep.so;
+    returns (library path, process)."""
     from smoothsde_tpu_torch.ops import _kernels
 
     out = os.path.join(out_root, name)
@@ -110,16 +154,18 @@ def build(name, src, flags, out_root):
     so = os.path.join(out, "libsweep.so")
     cmd = [_kernels._nvcc(), *_kernels._NVCC_FLAGS, "-Xptxas", "-v",
            "-shared", "-I", os.path.join(HERE, "csrc"), *flags, "-o", so,
-           src]
+           *srcs]
     return so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
 
 
 def kernel_of(sym, kernels):
-    """'<kernel>_<f32|f64>' of a mangled kernel symbol, or None."""
+    """'<kernel>_<f32|f64>' of a mangled kernel symbol, or None (each
+    entry point's CUDA kernel is its name, less "ctcrw_", + "_kernel")."""
     for k in kernels:
-        for code, dt in (("If", "f32"), ("Id", "f64")):
-            if f"{k}_kernel{code}" in sym:
+        fn = k.removeprefix("ctcrw_")
+        for code, dt in (("f", "f32"), ("d", "f64")):
+            if re.search(rf"\d{fn}_kernelI{code}", sym):
                 return f"{k}_{dt}"
     return None
 
@@ -171,21 +217,26 @@ def sass(so, kernels):
 
 
 def launch_shape(family, geo, kernel):
-    """(threads per CUDA block, dynamic shared memory in values) of a
-    kernel at a geometry; None for a source without tile lines (one
-    thread per lane, 128 a CUDA block, no shared memory). The k3 kernels
-    hold two buffers of staged rows and the elements per item; the score
-    scan also an h term per item and the carry's 5 moments in STEPS + 1
-    slots per lane."""
+    """(threads per CUDA block, shared memory in values) of a kernel at a
+    geometry; None for a source without tile lines (one thread per lane,
+    128 a CUDA block, no shared memory). The k3 kernels hold two buffers
+    of staged rows and the elements per item; the score scan also an h
+    term per item and the carry's 5 moments in STEPS + 1 slots per lane.
+    D1a holds its threads' 5-comp totals; D1b, D3a and D3b walk one
+    thread per lane."""
     if geo is None:
         return 128, 0
     if family == "k1":
         return geo[0], 0
+    if family == "diag":
+        if kernel == "diag_filter_totals":
+            return geo[0] * geo[1], 5 * geo[0] * geo[1]
+        return 128, 0
     tile, steps = geo[0], geo[1]
     items = steps * tile
-    rows = {"smooth_totals": 11, "score_scan": 14}[kernel]
+    rows = {"ctcrw_smooth_totals": 11, "ctcrw_score_scan": 14}[kernel]
     n = (2 * rows + 9) * items
-    if kernel == "score_scan":
+    if kernel == "ctcrw_score_scan":
         n += items + 5 * (steps + 1) * tile
     return items, n
 
@@ -197,9 +248,9 @@ def blocks_per_sm(regs, threads, smem_bytes):
     return min(by_regs, by_smem, THREADS_SM // threads, 32)
 
 
-def inputs(torch, dtype):
-    """Every kernel's inputs at config 5a's shapes: {stack, bd, h, prefix,
-    mom, suffix, p0_pos, p0_vel}."""
+def ctcrw_inputs(torch, dtype):
+    """Every CTCRW kernel's inputs at config 5a's shapes: {stack, bd, h,
+    prefix, mom, suffix, p0_pos, p0_vel}."""
     from chip_smoke import config5a
 
     from smoothsde_tpu_torch.ops import ctcrw_fused as cf
@@ -225,10 +276,65 @@ def inputs(torch, dtype):
             "suffix": suffix, "p0_pos": P0_POS, "p0_vel": P0_VEL}
 
 
+def diag_inputs(torch, dtype, typ):
+    """Every scalar-state kernel's inputs at the OU_SSM (phase 3b) or
+    BM_SSM (phase 3c) fit's shapes, at the simulation's truth: {fwd, bwd,
+    h, prefix, mom, suffix, p0}."""
+    from chip_smoke import bm_ssm_1m, ou_ssm_1m
+
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+    from smoothsde_tpu_torch.ops import diag_fused as df
+
+    dev = torch.device("cuda")
+    if typ == "OU_SSM":
+        data = ou_ssm_1m()
+        obs = np.column_stack([data["y1"], data["y2"]])
+        theta = [1.0, -0.5, np.log(2.0), 0.0]  # mu, log tau, log kappa
+    else:
+        data = bm_ssm_1m()
+        obs = data["y"][:, None]
+        theta = [0.05, np.log(0.3)]  # mu, log sigma
+    n, d = obs.shape
+    dat = df.prepare_diag_data(typ, obs, data["time"], data["ID"],
+                               dtype=dtype, device=dev)
+    par = torch.tensor(theta, dtype=dtype, device=dev).expand(
+        n, len(theta)).contiguous()
+    sysd = df.diag_system(typ, par, None, None, None, 0.1, data=dat)
+    p = cf.plan(d, n)
+    rows = (sysd.t, sysd.q, sysd.c, sysd.yd, sysd.resetf, sysd.updatef, p)
+    fwd, bwd = df.forward_stack(*rows), df.backward_stack(*rows)
+    h = sysd.h.reshape(1).contiguous()
+    pre = cf.block_prefix(df.diag_filter_totals(fwd, h, df.P0), d,
+                          "diag_filter", False)
+    mom, _ = df.diag_filter_scan(fwd, pre, h, df.P0)
+    suffix = cf.block_prefix(df.diag_smooth_totals(bwd, mom), d,
+                             "diag_smooth", True)
+    return {"fwd": fwd, "bwd": bwd, "h": h, "prefix": pre, "mom": mom,
+            "suffix": suffix, "p0": df.P0}
+
+
+def shapes(family):
+    """[(label, inputs(torch, dtype))] of the family."""
+    if family == "diag":
+        return [("ou_ssm_3b", lambda t, dt: diag_inputs(t, dt, "OU_SSM")),
+                ("bm_ssm_3c", lambda t, dt: diag_inputs(t, dt, "BM_SSM"))]
+    return [("config5a", ctcrw_inputs)]
+
+
+def plain(kern):
+    """The plain PyTorch version of entry point `kern`."""
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+    from smoothsde_tpu_torch.ops import diag_fused as df
+
+    if kern.startswith("diag_"):
+        return getattr(df, f"{kern}_plain")
+    return getattr(cf, f"{kern.removeprefix('ctcrw_')}_plain")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--family", choices=sorted(FAMILIES), required=True)
-    ap.add_argument("--parent", help="checkout whose source is timed as "
+    ap.add_argument("--parent", help="checkout whose sources are timed as "
                     "the variant 'parent'")
     ap.add_argument("--variant", action="append", default=[],
                     help="NAME=GEOMETRY[;FLAGS] (replaces the list)")
@@ -240,15 +346,13 @@ def main():
                             if os.path.abspath(q or os.curdir) != HERE]
     import torch
 
-    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
     from smoothsde_tpu_torch.ops import _kernels
 
     if not torch.cuda.is_available():
         sys.exit("tile_sweep: no CUDA device")
     fam = FAMILIES[args.family]
-    names, kernels = fam["lines"], fam["kernels"]
-    src = os.path.join(HERE, "csrc", fam["source"])
-    text = open(src).read()
+    sources, kernels = fam["sources"], fam["kernels"]
+    texts = {f: open(os.path.join(HERE, "csrc", f)).read() for f in sources}
     specs = args.variant or fam["variants"]
     if args.parent:
         specs = [f"parent=@{args.parent}"] + specs
@@ -258,22 +362,30 @@ def main():
         name, rest = spec.split("=", 1)
         geo, _, extra = rest.partition(";")
         flags[name] = extra.split()
-        path = src
+        # {source: its tile values, or None}, and the files nvcc builds
+        paths = {f: os.path.join(HERE, "csrc", f) for f in sources}
         if geo.startswith("@"):
-            path = os.path.join(os.path.abspath(geo[1:]),
-                                "smoothsde_tpu_torch", "csrc", fam["source"])
-            variants[name] = tile_lines(open(path).read(), names)
+            paths = {f: os.path.join(os.path.abspath(geo[1:]),
+                                     "smoothsde_tpu_torch", "csrc", f)
+                     for f in sources}
+            variants[name] = {f: tile_lines(open(paths[f]).read(), names)
+                              for f, names in sources.items()}
         elif geo == "default":
-            variants[name] = tile_lines(text, names)
+            variants[name] = {f: tile_lines(texts[f], names)
+                              for f, names in sources.items()}
         else:
             vals = geo.split(",")
-            variants[name] = tuple(v if k.endswith("Div") else int(v)
-                                   for k, v in zip(names, vals))
             os.makedirs(os.path.join(out_root, name), exist_ok=True)
-            path = os.path.join(out_root, name, fam["source"])
-            with open(path, "w") as f:
-                f.write(with_tile_lines(text, names, variants[name]))
-        jobs[name] = build(name, path, flags[name], out_root)
+            variants[name] = {}
+            for f, names in sources.items():
+                variants[name][f] = tuple(tile_value(k, v)
+                                          for k, v in zip(names, vals))
+                paths[f] = os.path.join(out_root, name, f)
+                with open(paths[f], "w") as out:
+                    out.write(with_tile_lines(texts[f], names,
+                                              variants[name][f]))
+        jobs[name] = build(name, list(paths.values()), flags[name],
+                           out_root)
     res = {"card": torch.cuda.get_device_name(0), "family": args.family,
            "variants": {}}
     libs = {}
@@ -283,87 +395,112 @@ def main():
             sys.exit(f"tile_sweep: nvcc failed for {name}:\n{o}\n{e}")
         lib = ctypes.CDLL(so)
         for k in kernels:
-            sig = _kernels._SIGNATURES[f"ctcrw_{k}"]
             for dt in ("f32", "f64"):
-                fn = getattr(lib, f"ssde_ctcrw_{k}_{dt}")
-                fn.argtypes = [_kernels._CTYPES[c] for c in sig] + [
+                fn = getattr(lib, f"ssde_{k}_{dt}")
+                fn.argtypes = [_kernels._CTYPES[c]
+                               for c in _kernels._SIGNATURES[k]] + [
                     ctypes.c_void_p]
                 fn.restype = ctypes.c_int
         libs[name] = lib
         geo = variants[name]
-        info = {"geometry": None if geo is None else dict(zip(names, geo)),
+        info = {"geometry": {f: None if g is None else dict(
+                    zip(sources[f], g)) for f, g in geo.items()},
                 "nvcc_flags": flags[name], "ptxas": ptxas(o + e, kernels)}
         if args.sass:
             info["sass"] = sass(so, kernels)
         for k_dt, pt in info["ptxas"].items():
             kern, dt = k_dt.rsplit("_", 1)
-            threads, values = launch_shape(args.family, geo, kern)
+            threads, values = launch_shape(args.family,
+                                           geo[kernels[kern]], kern)
             pt["smem_bytes"] = values * (4 if dt == "f32" else 8)
             pt["blocks_per_sm"] = blocks_per_sm(pt["registers"], threads,
                                                 pt["smem_bytes"])
         res["variants"][name] = info
 
-    names = list(libs)
-    for dtype, dt in ((torch.float32, "f32"), (torch.float64, "f64")):
-        x = inputs(torch, dtype)
-        L, rows, lanes = x["stack"].shape
-        stream = torch.cuda.current_stream().cuda_stream
-        outs = {}
+    for label, make_inputs in shapes(args.family):
+        for dtype, dt in ((torch.float32, "f32"), (torch.float64, "f64")):
+            x = make_inputs(torch, dtype)
+            timed(torch, args.family, libs, kernels, x, label, dt, dtype,
+                  res)
+    print(json.dumps(res), flush=True)
 
-        def call(name, kern):
-            fn = getattr(libs[name], f"ssde_ctcrw_{kern}_{dt}")
+
+def timed(torch, family, libs, kernels, x, label, dt, dtype, res):
+    """Times every variant's kernels on the inputs x and records, per
+    variant, "<kernel>_<label>_<dt>": us per launch (two rounds), the
+    differences from the first variant and the error against the f64
+    plain version."""
+    names = list(libs)
+    stack = x["stack" if family != "diag" else "fwd"]
+    L, _, lanes = stack.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    outs = {}
+    copies = {}
+    for kern in kernels:
+        ins = [x[n] for n in ARGS[kern]]
+        nbytes = sum(v.numel() * v.element_size() for v in ins
+                     if torch.is_tensor(v))
+        copies[kern] = [ins] + [
+            [v.clone() if torch.is_tensor(v) else v for v in ins]
+            for _ in range(-(-COLD_BYTES // nbytes) - 1)]
+
+    def call(name, kern):
+        """([(outputs, C arguments)] per copy of the inputs, entry)."""
+        fn = getattr(libs[name], f"ssde_{kern}_{dt}")
+        tail = ((stack.shape[1], L, lanes) if family == "k3"
+                else (L, lanes))
+        sets = []
+        for ins in copies[kern]:
             o = tuple(torch.empty(s, dtype=dtype, device="cuda")
                       for s in OUTS[kern](L, lanes))
-            tail = (rows, L, lanes) if args.family == "k3" else (L, lanes)
-            a = [v.data_ptr() if torch.is_tensor(v) else v for v in
-                 (*(x[n] for n in ARGS[kern]), *o, *tail)]
-            return o, a + [stream], fn
+            sets.append((o, [v.data_ptr() if torch.is_tensor(v) else v
+                             for v in (*ins, *o, *tail)] + [stream]))
+        return sets, fn
 
-        with torch.no_grad():
-            x64 = {n: v.double() if torch.is_tensor(v) else v
-                   for n, v in x.items()}
-            ref = {}
+    with torch.no_grad():
+        x64 = {n: v.double() if torch.is_tensor(v) else v
+               for n, v in x.items()}
+        ref = {}
+        for kern in kernels:
+            r = plain(kern)(*(x64[n] for n in ARGS[kern]))
+            ref[kern] = r if isinstance(r, tuple) else (r,)
+    times = {(n, k): [] for n in names for k in kernels}
+    for order in (names, names[::-1]):
+        for name in order:
             for kern in kernels:
-                r = getattr(cf, f"{kern}_plain")(*(x64[n]
-                                                   for n in ARGS[kern]))
-                ref[kern] = r if isinstance(r, tuple) else (r,)
-        times = {(n, k): [] for n in names for k in kernels}
-        for order in (names, names[::-1]):
-            for name in order:
-                for kern in kernels:
-                    o, a, fn = call(name, kern)
-                    for _ in range(5):
-                        err = fn(*a)
-                        if err:
-                            sys.exit(f"tile_sweep: {name} {kern} {dt}: "
-                                     f"CUDA error {err}")
-                    torch.cuda.synchronize()
-                    t0 = torch.cuda.Event(enable_timing=True)
-                    t1 = torch.cuda.Event(enable_timing=True)
-                    t0.record()
-                    for _ in range(100):
-                        fn(*a)
-                    t1.record()
-                    torch.cuda.synchronize()
-                    times[(name, kern)].append(t0.elapsed_time(t1) * 10.0)
-                    outs[(name, kern)] = o
-        for name in names:
-            for kern in kernels:
-                got = torch.cat([v.reshape(-1) for v in outs[(name, kern)]])
-                first = torch.cat([v.reshape(-1)
-                                   for v in outs[(names[0], kern)]])
-                want = torch.cat([v.reshape(-1) for v in ref[kern]])
-                scale = max(1.0, float(want.abs().max()))
-                res["variants"][name][f"{kern}_{dt}"] = {
-                    "us": times[(name, kern)],
-                    "finite": bool(torch.isfinite(got).all()),
-                    "max_diff_vs_first": float((got - first).abs().max()),
-                    "n_diff_vs_first": int((got != first).sum()),
-                    "n_values": got.numel(),
-                    "max_err_vs_plain_f64_over_scale":
-                        float((got.double() - want).abs().max()) / scale,
-                }
-    print(json.dumps(res), flush=True)
+                sets, fn = call(name, kern)
+                for _, a in sets:
+                    err = fn(*a)
+                    if err:
+                        sys.exit(f"tile_sweep: {name} {kern} {dt}: "
+                                 f"CUDA error {err}")
+                torch.cuda.synchronize()
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                for r in range(100):
+                    fn(*sets[r % len(sets)][1])
+                t1.record()
+                torch.cuda.synchronize()
+                times[(name, kern)].append(t0.elapsed_time(t1) * 10.0)
+                outs[(name, kern)] = sets[0][0]
+                del sets
+    for name in names:
+        for kern in kernels:
+            got = torch.cat([v.reshape(-1) for v in outs[(name, kern)]])
+            first = torch.cat([v.reshape(-1)
+                               for v in outs[(names[0], kern)]])
+            want = torch.cat([v.reshape(-1) for v in ref[kern]])
+            scale = max(1.0, float(want.abs().max()))
+            res["variants"][name][f"{kern}_{label}_{dt}"] = {
+                "us": times[(name, kern)],
+                "finite": bool(torch.isfinite(got).all()),
+                "max_diff_vs_first": float((got - first).abs().max()),
+                "n_diff_vs_first": int((got != first).sum()),
+                "n_values": got.numel(),
+                "max_err_vs_plain_f64_over_scale":
+                    float((got.double() - want).abs().max()) / scale,
+            }
 
 
 if __name__ == "__main__":

@@ -399,6 +399,41 @@ def test_forward_kernels_match_plain(cuda, d, n, L):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("typ", ["BM_SSM", "OU_SSM"])
+@pytest.mark.parametrize("d", [1, 2, 3])
+@pytest.mark.parametrize("n,L", [(80, None), (2048, None), (5000, None),
+                                 (20001, None), (5000, 1), (5000, 3),
+                                 (5000, 5), (5000, 27)])
+def test_diag_kernels_alone_match_plain(cuda, typ, d, n, L):
+    """D1a, D1b, D3a and D3b alone against their plain versions, with the
+    inputs and calls of chip_smoke.py's phase 2e: f64 within 1e-10 of the
+    output's scale, f32 (on the inputs rounded to f32) against the f64
+    plain version within 1e-4. Lanes below, at and across D1a's 32-lane
+    and the walks' 128-lane CUDA blocks, not a multiple of 4 (n = 5000:
+    157 d lanes); L = 1 (three of D1a's four segments empty, no next step
+    to load ahead), 3, 5 and 27 (D1a's last segments short: 2, 2, 1, 0 and
+    7, 7, 7, 6 steps). One launch of each per call."""
+    from chip_smoke import D_ALONE as calls
+    from chip_smoke import diag_inputs
+
+    x64 = diag_inputs(torch, d, n, L, typ)
+    ref = {k: call(df.OPS["plain"], x64) for k, call in calls.items()}
+    cf.reset_launches()
+    errs = {}
+    for dtype in (torch.float64, torch.float32):
+        x = [t.to(dtype) for t in x64]
+        for k, call in calls.items():
+            g, r = _flat(call(df.OPS["kernels"], x)).double(), _flat(ref[k])
+            assert bool(torch.isfinite(g).all()), (k, dtype)
+            scale = max(1.0, float(r.abs().max()))
+            errs[(k, dtype)] = float((g - r).abs().max()) / scale
+    assert all(cf.LAUNCHES[k] == 2 for k in calls), cf.LAUNCHES
+    bad = {k: e for k, e in errs.items()
+           if e > (1e-10 if k[1] == torch.float64 else 1e-4)}
+    assert not bad, errs
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("d,n", [(1, 80), (2, 5000), (3, 20001)])
 def test_elem_and_phase1_kernels_match_plain_f64(cuda, d, n):
     """K4a, K4b, K5a, K5b and K8 (filtering and smoothing elements, both
