@@ -38,11 +38,12 @@ non-zero before the final line:
      prefetch);
      2e. the scalar-state kernels D1a, D1b, D3a and D3b alone against
      their plain versions (BM_SSM at d = 1, OU_SSM at d = 2 and 3), at the
-     shapes and with the bars of 2c (lanes below, at and across D1a's
-     32-lane and the walks' 128-lane CUDA blocks; L = 1 leaves three of
-     D1a's four segments empty and no next step to load ahead), and at
-     L = 5 and 27 (D1a's last segments short: 2, 2, 1, 0 and 7, 7, 7, 6
-     steps);
+     shapes and with the bars of 2c (lanes below, at and across the
+     32-lane CUDA blocks of D1a, D1b and D3a and D3b's 128-lane one; L = 1
+     leaves three of their four segments empty and no next step to load
+     ahead), and at L = 5 and 27 (the last segments short: 2, 2, 1, 0 and
+     7, 7, 7, 6 steps) and 8, 16 and 24 (L = 32's segment boundaries; 2
+     to 6 steps a segment); D1b from D1a's segment totals;
   3. the CTCRW slice at full size: a 1M-step 2-D CTCRW (dt = 0.1,
      tau = 3, nu = 1, sigma_obs = 0.1, seed 5), simulated here with
      NumPy, fitted by `SDE(..., device="cuda").fit()` in f32; requires
@@ -76,7 +77,8 @@ non-zero before the final line:
   4. each kernel against its plain version at its fit's shapes (the
      diag kernels at both the OU_SSM and the BM_SSM fit's, the
      element-space kernels and K8 at config 5a's; f64, max abs error
-     within 1e-8 of the output's scale), and times on the card: each
+     within 1e-8 of the output's scale; the diag kernels in f32 too,
+     within 1e-4), and times on the card: each
      kernel and its plain version (CUDA events; the CTCRW kernels in
      f64 too), nllk + grad at 1M steps (host wall time per call, median
      and p90, kernels and plain; the element-space "fused" and "pallas"
@@ -162,6 +164,8 @@ P0_DIAG = 10.0
 # rows, totals, prefixes read or written, llk / h partials), and flops per
 # lane-step and per lane (approximate: a 14-comp combine ~150, a 9-comp
 # ~50, a 5-comp ~15, a 3-comp ~5, plus the element and score algebra).
+# The function's own traffic: the segment totals that D1a hands D1b in
+# f32 are the design's, not the function's, and are not counted.
 TRAFFIC = {
     "ctcrw_filter_totals": (8, 19, 210, 0),
     "block_prefix_filter": (0, 28, 0, 150),
@@ -738,10 +742,32 @@ K1_ALONE = {
                                                         P0_POS, P0_VEL),
     "ctcrw_filter_scan": lambda o, x: o.filter_scan(*x, P0_POS, P0_VEL),
 }
+
+# phase 2e's cuts of L: 1 and 3 as 2c; 5 and 27 (the last of the four
+# segments of D1a, D1b and D3a short or empty) and L = 32's segment
+# boundaries 8, 16 and 24 (also tests/test_torch_gpu.py)
+D_CUTS = (1, 3, 5, 8, 16, 24, 27)
+
+
+def d1a_alone(o, x):
+    from smoothsde_tpu_torch.ops.diag_fused import segment_scratch
+
+    return o.filter_totals(x[0], x[5], P0_DIAG, segment_scratch(x[0]))
+
+
+def d1b_alone(o, x):
+    """D1b seeded, as on the fit's path, with the segment totals that D1a
+    leaves over the same stack (D1a launches once more for it)."""
+    from smoothsde_tpu_torch.ops.diag_fused import segment_scratch
+
+    seg = segment_scratch(x[0])
+    o.filter_totals(x[0], x[5], P0_DIAG, seg)
+    return o.filter_scan(x[0], x[2], seg, x[5], P0_DIAG)
+
+
 D_ALONE = {
-    "diag_filter_totals": lambda o, x: o.filter_totals(x[0], x[5], P0_DIAG),
-    "diag_filter_scan": lambda o, x: o.filter_scan(x[0], x[2], x[5],
-                                                   P0_DIAG),
+    "diag_filter_totals": d1a_alone,
+    "diag_filter_scan": d1b_alone,
     "diag_smooth_totals": lambda o, x: o.smooth_totals(x[1], x[3]),
     "diag_score_scan": lambda o, x: o.score_scan(x[1], x[3], x[4], x[5],
                                                  P0_DIAG),
@@ -756,8 +782,9 @@ def phase_alone(torch, tag, make_inputs, calls, ops, cuts=(1, 3)):
     2048, 5000, 20001} (lanes below, at and across K3's 64-lane tile,
     D1a's 32-lane and the walks' 128-lane blocks, not a multiple of 4) and
     n = 5000 cut to the L in `cuts` steps per lane (1 and 3: below and
-    across K3's 2-step chunk; 2e adds 5 and 27, D1a's four segments then
-    of 2, 2, 1, 0 and 7, 7, 7, 6 steps): f64 within 1e-10 of the output's
+    across K3's 2-step chunk; 2e adds D_CUTS' others, the four segments of
+    D1a, D1b and D3a then of 2, 2, 1, 0 steps, 2 to 6 each, 7, 7, 7, 6
+    steps): f64 within 1e-10 of the output's
     scale, f32 (on the inputs rounded to f32) against the f64 plain
     version within 1e-4 (the f32 bar: f32 forming the 2x2 inverses and
     K3's Qinv E Qinv score on short intervals costs up to ~5e-5 of the
@@ -922,9 +949,10 @@ def diag_fit(torch, label, typ, data, response, par0, truth):
 
 def diag_kernel_checks(torch, fit):
     """Phase 4 for the scalar-state kernels at a diag fit's shapes: each
-    kernel against its plain version (f64, max abs error within 1e-8 of
-    the output's scale) and its time and its plain version's (f32, CUDA
-    events). Returns {kernel name: measurements}."""
+    kernel against its plain version (max abs error within 1e-8 of the
+    output's scale in f64, 1e-4 in f32: the fit's own precision, in which
+    D1b runs its segments) and its time and its plain version's (f32,
+    CUDA events). Returns {kernel name: measurements}."""
     from smoothsde_tpu_torch.ops import ctcrw_fused as cf
     from smoothsde_tpu_torch.ops import diag_fused as df
 
@@ -945,18 +973,19 @@ def diag_kernel_checks(torch, fit):
             rows = (sysd.t, sysd.q, sysd.c, sysd.yd, sysd.resetf,
                     sysd.updatef, p)
             fst, bst = df.forward_stack(*rows), df.backward_stack(*rows)
-            tot = ops_k.filter_totals(fst, h1, P0_DIAG)
+            seg = df.segment_scratch(fst)  # D1a writes it, D1b reads it
+            tot = ops_k.filter_totals(fst, h1, P0_DIAG, seg)
             pre = ops_k.block_prefix(tot, d, "diag_filter", False)
-            mom, _ = ops_k.filter_scan(fst, pre, h1, P0_DIAG)
+            mom, _ = ops_k.filter_scan(fst, pre, seg, h1, P0_DIAG)
             stot = ops_k.smooth_totals(bst, mom)
             suf = ops_k.block_prefix(stot, d, "diag_smooth", True)
             calls = {
                 "diag_filter_totals": lambda o: o.filter_totals(
-                    fst, h1, P0_DIAG),
+                    fst, h1, P0_DIAG, seg),
                 "block_prefix_diag_filter": lambda o: o.block_prefix(
                     tot, d, "diag_filter", False),
                 "diag_filter_scan": lambda o: o.filter_scan(
-                    fst, pre, h1, P0_DIAG),
+                    fst, pre, seg, h1, P0_DIAG),
                 "diag_smooth_totals": lambda o: o.smooth_totals(bst, mom),
                 "block_prefix_diag_smooth": lambda o: o.block_prefix(
                     stot, d, "diag_smooth", True),
@@ -978,6 +1007,9 @@ def diag_kernel_checks(torch, fit):
                           f"plain max abs err {err:.3e}")
                 else:
                     e["max_abs_err_f32"] = err
+                    e["max_rel_err_f32"] = err / scale
+                    check(err <= 1e-4 * scale, f"{typ} {name}: f32 kernel vs "
+                          f"plain max abs err {err:.3e}")
                     e["ms"] = cuda_ms(lambda: fn(ops_k), 50, 3, torch)
                     e["plain_ms"] = cuda_ms(lambda: fn(ops_p), 3, 1, torch)
                     e["shape"] = (f"{typ} n={p.n} d={d} lanes={p.lanes} "
@@ -985,7 +1017,9 @@ def diag_kernel_checks(torch, fit):
                     e.update(bound(name, p, 4))
     for name, e in out.items():
         log(f"  {typ} {name}: {e['ms']:.4f} ms (plain {e['plain_ms']:.2f} "
-            f"ms), f64 max abs err {e['max_abs_err']:.2e}")
+            f"ms), bound {e['bound_us']:.2f} us ({e['bytes'] / 1e6:.2f} MB), "
+            f"max abs err over the scale f64 {e['max_rel_err']:.2e}, "
+            f"f32 {e['max_rel_err_f32']:.2e}")
     return out
 
 
@@ -1279,8 +1313,7 @@ def main():
     k1 = phase_alone(torch, "2d", forward_inputs, K1_ALONE, cf.OPS)
     log("[2e] the scalar-state kernels D1a, D1b, D3a and D3b alone vs their "
         "plain versions, around their CUDA blocks and D1a's segments")
-    kd = phase_alone(torch, "2e", diag_inputs, D_ALONE, df.OPS,
-                     cuts=(1, 3, 5, 27))
+    kd = phase_alone(torch, "2e", diag_inputs, D_ALONE, df.OPS, cuts=D_CUTS)
 
     log("[3] config 5a: 1M-step 2-D CTCRW fit on the card, f32")
     t = time.time()

@@ -25,7 +25,26 @@
 // lane-step, D3b all 8 rows and the moments and writes 4 cotangents: at
 // 1M steps, d = 2, f32 (the OU_SSM fit: 62,500 lanes of L = 32) that is
 // 49 and 113 MB, 14.6 and 33.7 us at 3.35 TB/s: bytes, if enough loads
-// are in flight. D3a walks one thread per lane.
+// are in flight.
+//
+// D3a, first written as one thread per lane, each step waiting on its own
+// rows, was latency-bound: 30.7 us at d = 2 and 27.6 at d = 1 for half
+// the bytes (f32, events, cold). Now it runs D1a's segments in reverse
+// time: each lane's steps are cut into kD3aSegs segments of consecutive
+// steps, one thread each (a warp = 32 neighbouring lanes of one segment);
+// each thread walks its segment from its last step to its first with the
+// earlier step's rows in flight and composes the segment's total from the
+// identity; the lane's first thread composes the totals from shared
+// memory, the last segment first and each earlier one applied outside
+// (as _comb1_rev). f32 moves in its last bits. Measured (H100 SXM,
+// 700 W; tile_sweep.py, same call as the parent; PERF.md §6): f32 30.7 ->
+// 21.6 us at d = 2, 27.6 -> 11.9 at d = 1 (in the chain, profiler: 30.3
+// -> 20.5, 26.8 -> 10.8); f64 40.9 -> 36.1 and 32.3 -> 19.7. Registers
+// 40 (f64 62), 12 (f64 8) CUDA blocks an SM. Not kept: the walk with the
+// earlier rows in flight alone (25.3 / 21.5 us), 2 segments (20.2 /
+// 14.4: faster at d = 2, slower at d = 1), 8 (21.0 / 12.7), 64 lanes a
+// block (21.8 / 11.9), 2 and 8 segments of 64 lanes (20.1 / 14.6, 21.3 /
+// 12.9).
 //
 // D3b, first written as one thread per lane with each step loading its
 // own rows and then computing, was bound by latency, not bytes: 83.9 us at
@@ -50,24 +69,71 @@
 
 namespace ssde {
 
+// D3a's geometry: segments (threads) per lane and lanes per CUDA block
+// (smoothsde_tpu_torch/tile_sweep.py times variants of these two lines).
+constexpr int kD3aSegs = 4;
+constexpr int kD3aLanes = 32;
+constexpr int kD3aThreads = kD3aSegs * kD3aLanes;
+
+// The rows of one step that D3a's element needs.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+struct DiagSmRow {
+  T tn, qn, cn, te, mf, Pf;
+};
+
+template <typename T>
+__device__ __forceinline__ DiagSmRow<T> read_sm(
+    const T* __restrict__ stack, const T* __restrict__ moments, int l, int i,
+    int lanes) {
+  const T* row = stack + (long long)l * kDiagBwdRows * lanes + i;
+  const T* m = moments + (long long)l * kDiagMomRows * lanes + i;
+  DiagSmRow<T> r;
+  r.tn = row[0];
+  r.qn = row[(long long)lanes];
+  r.cn = row[2LL * lanes];
+  r.te = row[3LL * lanes];
+  r.mf = m[0];
+  r.Pf = m[(long long)lanes];
+  return r;
+}
+
+// Thread t of a CUDA block walks segment t / kD3aLanes of lane t %
+// kD3aLanes from its last step to its first, the earlier step's rows in
+// flight: a warp reads 32 neighbouring lanes of one step. The lane's
+// first thread composes the segments' totals, the last segment first
+// (each earlier one applied outside, as _comb1_rev).
+template <typename T>
+__global__ void __launch_bounds__(kD3aThreads)
     diag_smooth_totals_kernel(const T* __restrict__ stack,
                               const T* __restrict__ moments,
                               T* __restrict__ totals, int L, int lanes) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= lanes) return;
+  __shared__ T part[Smooth3<T>::N * kD3aThreads];  // [comp][segment][lane]
+  const int j = threadIdx.x % kD3aLanes, s = threadIdx.x / kD3aLanes;
+  const int i = blockIdx.x * kD3aLanes + j;
+  int lo, hi;
+  segment_of<kD3aSegs>(s, L, lo, hi);
   Smooth3<T> acc = Smooth3<T>::identity();
-  for (int l = L - 1; l >= 0; --l) {
-    const T* row = stack + (long long)l * kDiagBwdRows * lanes + i;
-    const T* m = moments + (long long)l * kDiagMomRows * lanes + i;
-    T G;
-    const Smooth3<T> e =
-        smooth_elem1(row[0], row[(long long)lanes], row[2LL * lanes], m[0],
-                     m[(long long)lanes], row[3LL * lanes], G);
-    acc = Smooth3<T>::combine(acc, e);
+  if (i < lanes && lo < hi) {
+    DiagSmRow<T> nxt = read_sm(stack, moments, hi - 1, i, lanes);
+    for (int l = hi - 1; l >= lo; --l) {
+      const DiagSmRow<T> r = nxt;
+      if (l > lo) nxt = read_sm(stack, moments, l - 1, i, lanes);  // in flight
+      T G;
+      acc = Smooth3<T>::combine(
+          acc, smooth_elem1(r.tn, r.qn, r.cn, r.mf, r.Pf, r.te, G));
+    }
   }
-  acc.store(totals + i, lanes);
+  acc.store(part + s * kD3aLanes + j, kD3aThreads);
+  __syncthreads();
+  if (s == 0 && i < lanes) {
+    acc.load(part + (kD3aSegs - 1) * kD3aLanes + j, kD3aThreads);
+    for (int k = kD3aSegs - 2; k >= 0; --k) {
+      Smooth3<T> e;
+      e.load(part + k * kD3aLanes + j, kD3aThreads);
+      acc = Smooth3<T>::combine(acc, e);
+    }
+    acc.store(totals + i, lanes);
+  }
 }
 
 template <typename T>
@@ -154,9 +220,9 @@ __global__ void __launch_bounds__(kThreads)
       const T* stack, const T* moments, T* totals, int L, int lanes,           \
       void* stream) {                                                          \
     ssde::diag_smooth_totals_kernel<T>                                         \
-        <<<ssde::grid_for(lanes), ssde::kThreads, 0,                           \
-           static_cast<cudaStream_t>(stream)>>>(stack, moments, totals, L,     \
-                                                lanes);                        \
+        <<<(lanes + ssde::kD3aLanes - 1) / ssde::kD3aLanes,                    \
+           ssde::kD3aThreads, 0, static_cast<cudaStream_t>(stream)>>>(         \
+            stack, moments, totals, L, lanes);                                 \
     SSDE_RETURN_LAUNCH_STATUS();                                               \
   }                                                                            \
   extern "C" int ssde_diag_score_scan_##SUFFIX(                                \

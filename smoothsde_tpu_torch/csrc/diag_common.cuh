@@ -83,6 +83,16 @@ struct Smooth3 {
   }
 };
 
+// Steps [lo, hi) of segment s when a lane's L steps are cut into S
+// segments (threads) of ceil(L / S) consecutive steps, the last ones short
+// or empty: the rule of D1a, D1b and D3a.
+template <int S>
+__device__ __forceinline__ void segment_of(int s, int L, int& lo, int& hi) {
+  const int len = (L + S - 1) / S;
+  lo = min(L, s * len);
+  hi = min(L, lo + len);
+}
+
 // Filtering element of one step: reset / update / propagate-only select
 // over the 0/1 masks R and U (ops/diag_fused._elem1).
 template <typename T>

@@ -14,7 +14,8 @@ the checkout, keyed by a hash of the sources and flags, so a changed
 source rebuilds and an unchanged one is reused. Every C entry point
 takes device pointers, scalars and the CUDA stream, launches on that
 stream without synchronising, and returns cudaGetLastError() of its
-launches; `launch` raises on a non-zero code.
+launches; `launch` raises on a non-zero code. A few entry points take
+nothing and return a constant of the kernels' geometry (`constant`).
 """
 
 from __future__ import annotations
@@ -50,10 +51,10 @@ _SIGNATURES = {
     # stack, moments, suffix, h, p0_pos, cot, hbar, rows, L, lanes
     "ctcrw_score_scan": "ppppdppiii",
     # scalar-state (BM_SSM / OU_SSM) kernels, csrc/diag_*.cu
-    # stack, h, p0, totals, L, lanes
-    "diag_filter_totals": "ppdpii",
-    # stack, prefix, h, p0, moments, llk, L, lanes
-    "diag_filter_scan": "pppdppii",
+    # stack, h, p0, totals, seg (scratch), L, lanes
+    "diag_filter_totals": "ppdppii",
+    # stack, prefix, seg, h, p0, moments, llk, L, lanes
+    "diag_filter_scan": "ppppdppii",
     "block_prefix_diag_filter": "pppiiii",
     "block_prefix_diag_smooth": "pppiiii",
     # stack, moments, totals, L, lanes
@@ -74,6 +75,9 @@ _SIGNATURES = {
     "phase1_scan_smooth": "ppiii",
 }
 _CTYPES = {"p": ctypes.c_void_p, "d": ctypes.c_double, "i": ctypes.c_int}
+# entry points that take nothing and return a constant of the built
+# kernels (`constant`): D1b's segments per lane (csrc/diag_filter.cu)
+_CONSTANTS = ("diag_filter_segs",)
 
 _lib = None  # the loaded library, built on first use
 
@@ -148,6 +152,10 @@ def load():
                 fn = getattr(lib, f"ssde_{name}_{suffix}")
                 fn.argtypes = [_CTYPES[c] for c in sig] + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
+        for name in _CONSTANTS:
+            for suffix in ("f32", "f64"):
+                fn = getattr(lib, f"ssde_{name}_{suffix}")
+                fn.argtypes, fn.restype = [], ctypes.c_int
         lib.ssde_error_string.argtypes = [ctypes.c_int]
         lib.ssde_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -155,6 +163,12 @@ def load():
 
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def constant(name: str, dtype) -> int:
+    """The value of the built kernels' constant `name` (_CONSTANTS) for
+    the working type dtype (float32/float64); builds if needed."""
+    return getattr(load(), f"ssde_{name}_{_SUFFIX[dtype]}")()
 # positions of each entry point's pointer arguments
 _PTRS = {name: tuple(i for i, c in enumerate(sig) if c == "p")
          for name, sig in _SIGNATURES.items()}

@@ -30,6 +30,7 @@ block prefix is ops/ctcrw_fused.py's K2 wrapper, with the "diag_filter"
 and "diag_smooth" elements):
 
   diag_filter_totals  (D1a)  block totals of the 5-comp filtering elements
+                             (and, on the card, its segments' totals)
   diag_filter_scan    (D1b)  prefix-seeded rescan: moments + llk partials
   diag_smooth_totals  (D3a)  block totals of the 3-comp smoothing elements
   diag_score_scan     (D3b)  suffix-seeded rescan: Fisher score cotangents
@@ -42,6 +43,7 @@ ops/_kernels.py) or raises. Launches are counted in ops/ctcrw_fused.py's
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -384,27 +386,56 @@ def diag_score_scan_plain(stack, moments, suffix, h, p0):
 # ---------------------------------------------------------------------------
 
 
-def diag_filter_totals(stack, h, p0):
-    """D1a wrapper; see diag_filter_totals_plain."""
-    if not cf._on_cuda(stack, h):
+@functools.cache
+def d1b_segs(dtype):
+    """D1b's segments (threads) per lane on the card for the working type
+    dtype, as the built kernels report it (kD1bSegs in csrc/diag_filter.cu:
+    D1a's count in f32, one in f64)."""
+    from smoothsde_tpu_torch.ops import _kernels
+
+    return _kernels.constant("diag_filter_segs", dtype)
+
+
+def segment_scratch(stack):
+    """The (S - 1, 5, lanes) scratch, S = d1b_segs of the stack's dtype,
+    in which D1a leaves the totals of each lane's segments but the last,
+    where D1b's segments start (empty in f64). For a CPU stack it is
+    empty: the plain versions take no scratch."""
+    segs = d1b_segs(stack.dtype) if stack.is_cuda else 1
+    return stack.new_empty((segs - 1, _N_TOT, stack.shape[2]))
+
+
+def _check_seg(seg, stack, lanes):
+    if tuple(seg.shape) != (d1b_segs(stack.dtype) - 1, _N_TOT, lanes):
+        raise ValueError(f"segment scratch shape {tuple(seg.shape)}")
+
+
+def diag_filter_totals(stack, h, p0, seg):
+    """D1a wrapper; see diag_filter_totals_plain. On the card D1a also
+    fills seg (segment_scratch); for CPU tensors seg is left as it is."""
+    if not cf._on_cuda(stack, h, seg):
         return diag_filter_totals_plain(stack, h, p0)
     L, lanes = cf._check_rows(stack, len(_FWD_PAD))
+    _check_seg(seg, stack, lanes)
     totals = stack.new_empty((_N_TOT, lanes))
-    cf._launch("diag_filter_totals", stack, h, float(p0), totals, L, lanes)
+    cf._launch("diag_filter_totals", stack, h, float(p0), totals, seg, L,
+               lanes)
     return totals
 
 
-def diag_filter_scan(stack, prefix, h, p0):
-    """D1b wrapper; see diag_filter_scan_plain."""
-    if not cf._on_cuda(stack, prefix, h):
+def diag_filter_scan(stack, prefix, seg, h, p0):
+    """D1b wrapper; see diag_filter_scan_plain. On the card seg holds
+    D1a's segment totals over the same stack; CPU tensors ignore it."""
+    if not cf._on_cuda(stack, prefix, seg, h):
         return diag_filter_scan_plain(stack, prefix, h, p0)
     L, lanes = cf._check_rows(stack, len(_FWD_PAD))
     if tuple(prefix.shape) != (_N_TOT, lanes):
         raise ValueError(f"prefix shape {tuple(prefix.shape)}")
+    _check_seg(seg, stack, lanes)
     moments = stack.new_empty((L, _N_MOM, lanes))
     llk = stack.new_empty((lanes,))
-    cf._launch("diag_filter_scan", stack, prefix, h, float(p0), moments,
-               llk, L, lanes)
+    cf._launch("diag_filter_scan", stack, prefix, seg, h, float(p0),
+               moments, llk, L, lanes)
     return moments, llk
 
 
@@ -436,9 +467,13 @@ OPS = {
     "kernels": cf.KernelOps(diag_filter_totals, cf.block_prefix,
                             diag_filter_scan, diag_smooth_totals,
                             diag_score_scan),
-    "plain": cf.KernelOps(diag_filter_totals_plain, cf.block_prefix_plain,
-                          diag_filter_scan_plain, diag_smooth_totals_plain,
-                          diag_score_scan_plain),
+    # the plain versions take no segment scratch
+    "plain": cf.KernelOps(
+        lambda stack, h, p0, seg: diag_filter_totals_plain(stack, h, p0),
+        cf.block_prefix_plain,
+        lambda stack, prefix, seg, h, p0: diag_filter_scan_plain(
+            stack, prefix, h, p0),
+        diag_smooth_totals_plain, diag_score_scan_plain),
 }
 
 
@@ -450,9 +485,10 @@ OPS = {
 def diag_fwd(stack, h, p: cf.Plan, p0, ops: cf.KernelOps = OPS["kernels"]):
     """Forward filter: (llk, filtered moments (L, 2, lanes)). h is a
     1-element tensor on the stack's device."""
-    totals = ops.filter_totals(stack, h, p0)
+    seg = segment_scratch(stack)
+    totals = ops.filter_totals(stack, h, p0, seg)
     prefix = ops.block_prefix(totals, p.d, "diag_filter", False)
-    moments, llk_lanes = ops.filter_scan(stack, prefix, h, p0)
+    moments, llk_lanes = ops.filter_scan(stack, prefix, seg, h, p0)
     return llk_lanes.sum(), moments
 
 

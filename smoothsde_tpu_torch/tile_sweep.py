@@ -16,11 +16,16 @@ build/tile_sweep/<family>/, with `-Xptxas -v`. Then, for f32 and f64, at
 the family's shapes, each variant's kernels: device us per launch (CUDA
 events over 100 launches cycling through copies of the inputs that hold
 256 MB, so that no launch finds them in the L2; the variants in turn,
-the kernels in order, twice: a same-call A/B against the parent), the
+the kernels in order, twice: a same-call A/B against the parent; each
+timed loop queued behind a device sleep, so no launch waits on the host), the
 count of output values that differ from the first variant's (the parent
 with --parent) and the largest difference (0 and 0 when the rounding is
 unchanged), and the max abs error against the plain version in f64 over
-the output's scale.
+the output's scale. For D1b (family diag) also the time of a D1b launch
+right after the same variant's D1a over the same stack, as in the
+forward chain, where D1b finds in the L2 what D1a read ("us_after_d1a"),
+and right after a D1a over another copy ("us_after_d1a_other"; CUDA
+events around each D1b launch).
 ptxas's registers, spills and the resident CUDA blocks per SM they and
 the shared memory allow are printed beside; with --sass, each kernel's
 instruction count by opcode (cuobjdump -sass; static counts).
@@ -39,8 +44,8 @@ GEOMETRY is the values of the family's tile lines, comma-separated:
       SM asked of ptxas, BranchFreeDiv or IeeeDiv);
   k3: TILE,STEPS,MINB,DIV (lanes per CUDA block, steps per chunk =
       threads per lane, MINB and DIV as for k1);
-  diag: S,LANES (D1a: segments = threads per lane, lanes per CUDA
-      block; diag_backward.cu has no tile lines and builds as it is);
+  diag: S,LANES,S3,LANES3 (D1a and D1b: segments = threads per lane,
+      lanes per CUDA block; then D3a's);
 or "default" or "@DIR"; extra nvcc flags (e.g. --use_fast_math) go after
 a ";". One JSON line.
 """
@@ -79,13 +84,15 @@ FAMILIES = {
                         "one_step=128,1,4,BranchFreeDiv"]},
     "diag": {"sources": {
                  "diag_filter.cu": ("kD1Segs", "kD1Lanes"),
-                 "diag_backward.cu": ()},
+                 "diag_backward.cu": ("kD3aSegs", "kD3aLanes")},
              "kernels": {"diag_filter_totals": "diag_filter.cu",
                          "diag_filter_scan": "diag_filter.cu",
                          "diag_smooth_totals": "diag_backward.cu",
                          "diag_score_scan": "diag_backward.cu"},
-             "variants": ["default=default", "walk=1,128", "segs2=2,32",
-                          "segs8=8,32", "lanes64=4,64"]},
+             "variants": ["default=default", "walk=1,128,1,128",
+                          "segs2=2,32,2,32", "segs8=8,32,8,32",
+                          "lanes64=4,64,4,64", "segs2_64=2,64,2,64",
+                          "segs8_64=8,64,8,64"]},
 }
 # each kernel's inputs (the plain version's arguments) and output shapes
 ARGS = {
@@ -113,6 +120,10 @@ SMEM_SM, REGS_SM, THREADS_SM = 228 * 1024, 65536, 2048  # H100 per SM
 # and the timed launches cycle through them: every launch reads its
 # inputs from device memory, not from the 50 MB L2 the last one filled
 COLD_BYTES = 256 * 2**20
+# a timed loop starts behind a ~25 ms device sleep, so that the host has
+# queued every launch before the first runs and no timed kernel waits on
+# the host's launch calls
+HOLD_CYCLES = 50_000_000
 
 
 def tile_pattern(name):
@@ -216,22 +227,25 @@ def sass(so, kernels):
         v.values())) for k, v in out.items()}
 
 
-def launch_shape(family, geo, kernel):
+def launch_shape(family, geo, kernel, scratch):
     """(threads per CUDA block, shared memory in values) of a kernel at a
     geometry; None for a source without tile lines (one thread per lane,
     128 a CUDA block, no shared memory). The k3 kernels hold two buffers
     of staged rows and the elements per item; the score scan also an h
     term per item and the carry's 5 moments in STEPS + 1 slots per lane.
-    D1a holds its threads' 5-comp totals; D1b, D3a and D3b walk one
-    thread per lane."""
+    D1a and D3a hold their threads' 5- and 3-comp totals, D1b their llk
+    partials (a D1b without the segment scratch, `scratch` false, walks
+    one thread per lane); D3b walks one thread per lane."""
+    if family == "diag":
+        values = {"diag_filter_totals": 5, "diag_smooth_totals": 3,
+                  "diag_filter_scan": int(scratch)}.get(kernel, 0)
+        if geo is None or not values:
+            return 128, 0
+        return geo[0] * geo[1], values * geo[0] * geo[1]
     if geo is None:
         return 128, 0
     if family == "k1":
         return geo[0], 0
-    if family == "diag":
-        if kernel == "diag_filter_totals":
-            return geo[0] * geo[1], 5 * geo[0] * geo[1]
-        return 128, 0
     tile, steps = geo[0], geo[1]
     items = steps * tile
     rows = {"ctcrw_smooth_totals": 11, "ctcrw_score_scan": 14}[kernel]
@@ -304,9 +318,10 @@ def diag_inputs(torch, dtype, typ):
     rows = (sysd.t, sysd.q, sysd.c, sysd.yd, sysd.resetf, sysd.updatef, p)
     fwd, bwd = df.forward_stack(*rows), df.backward_stack(*rows)
     h = sysd.h.reshape(1).contiguous()
-    pre = cf.block_prefix(df.diag_filter_totals(fwd, h, df.P0), d,
+    seg = df.segment_scratch(fwd)
+    pre = cf.block_prefix(df.diag_filter_totals(fwd, h, df.P0, seg), d,
                           "diag_filter", False)
-    mom, _ = df.diag_filter_scan(fwd, pre, h, df.P0)
+    mom, _ = df.diag_filter_scan(fwd, pre, seg, h, df.P0)
     suffix = cf.block_prefix(df.diag_smooth_totals(bwd, mom), d,
                              "diag_smooth", True)
     return {"fwd": fwd, "bwd": bwd, "h": h, "prefix": pre, "mom": mom,
@@ -329,6 +344,18 @@ def plain(kern):
     if kern.startswith("diag_"):
         return getattr(df, f"{kern}_plain")
     return getattr(cf, f"{kern.removeprefix('ctcrw_')}_plain")
+
+
+def signatures(root):
+    """ops/_kernels.py's _SIGNATURES of the checkout at root."""
+    import importlib.util
+
+    path = os.path.join(root, "smoothsde_tpu_torch", "ops", "_kernels.py")
+    spec = importlib.util.spec_from_file_location(
+        f"_sweep_kernels_{abs(hash(path))}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod._SIGNATURES
 
 
 def main():
@@ -356,7 +383,7 @@ def main():
     specs = args.variant or fam["variants"]
     if args.parent:
         specs = [f"parent=@{args.parent}"] + specs
-    variants, flags, jobs = {}, {}, {}
+    variants, flags, jobs, sigs, segs = {}, {}, {}, {}, {}
     out_root = os.path.join(ROOT, "build", "tile_sweep", args.family)
     for spec in specs:
         name, rest = spec.split("=", 1)
@@ -364,22 +391,24 @@ def main():
         flags[name] = extra.split()
         # {source: its tile values, or None}, and the files nvcc builds
         paths = {f: os.path.join(HERE, "csrc", f) for f in sources}
+        sigs[name] = _kernels._SIGNATURES
         if geo.startswith("@"):
             paths = {f: os.path.join(os.path.abspath(geo[1:]),
                                      "smoothsde_tpu_torch", "csrc", f)
                      for f in sources}
+            sigs[name] = signatures(os.path.abspath(geo[1:]))
             variants[name] = {f: tile_lines(open(paths[f]).read(), names)
                               for f, names in sources.items()}
         elif geo == "default":
             variants[name] = {f: tile_lines(texts[f], names)
                               for f, names in sources.items()}
         else:
-            vals = geo.split(",")
+            vals = iter(geo.split(","))  # the sources' tile lines in order
             os.makedirs(os.path.join(out_root, name), exist_ok=True)
             variants[name] = {}
             for f, names in sources.items():
-                variants[name][f] = tuple(tile_value(k, v)
-                                          for k, v in zip(names, vals))
+                variants[name][f] = tuple(tile_value(k, next(vals))
+                                          for k in names)
                 paths[f] = os.path.join(out_root, name, f)
                 with open(paths[f], "w") as out:
                     out.write(with_tile_lines(texts[f], names,
@@ -398,10 +427,20 @@ def main():
             for dt in ("f32", "f64"):
                 fn = getattr(lib, f"ssde_{k}_{dt}")
                 fn.argtypes = [_kernels._CTYPES[c]
-                               for c in _kernels._SIGNATURES[k]] + [
-                    ctypes.c_void_p]
+                               for c in sigs[name][k]] + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
         libs[name] = lib
+        # D1b's segments per lane by working type, as the variant's build
+        # reports them, where its D1a and D1b take the segment scratch (the
+        # C signatures of this tree); None for a checkout without it
+        segs[name] = None
+        if ("diag_filter_scan" in kernels and sigs[name]["diag_filter_scan"]
+                == _kernels._SIGNATURES["diag_filter_scan"]):
+            segs[name] = {}
+            for dt in ("f32", "f64"):
+                fn = getattr(lib, f"ssde_diag_filter_segs_{dt}")
+                fn.argtypes, fn.restype = [], ctypes.c_int
+                segs[name][dt] = fn()
         geo = variants[name]
         info = {"geometry": {f: None if g is None else dict(
                     zip(sources[f], g)) for f, g in geo.items()},
@@ -411,7 +450,8 @@ def main():
         for k_dt, pt in info["ptxas"].items():
             kern, dt = k_dt.rsplit("_", 1)
             threads, values = launch_shape(args.family,
-                                           geo[kernels[kern]], kern)
+                                           geo[kernels[kern]], kern,
+                                           segs[name] is not None)
             pt["smem_bytes"] = values * (4 if dt == "f32" else 8)
             pt["blocks_per_sm"] = blocks_per_sm(pt["registers"], threads,
                                                 pt["smem_bytes"])
@@ -420,16 +460,17 @@ def main():
     for label, make_inputs in shapes(args.family):
         for dtype, dt in ((torch.float32, "f32"), (torch.float64, "f64")):
             x = make_inputs(torch, dtype)
-            timed(torch, args.family, libs, kernels, x, label, dt, dtype,
-                  res)
+            timed(torch, args.family, libs, segs, kernels, x, label, dt,
+                  dtype, res)
     print(json.dumps(res), flush=True)
 
 
-def timed(torch, family, libs, kernels, x, label, dt, dtype, res):
+def timed(torch, family, libs, segs, kernels, x, label, dt, dtype, res):
     """Times every variant's kernels on the inputs x and records, per
     variant, "<kernel>_<label>_<dt>": us per launch (two rounds), the
     differences from the first variant and the error against the f64
-    plain version."""
+    plain version; for D1b also the two paired times of the module
+    docstring (two rounds each)."""
     names = list(libs)
     stack = x["stack" if family != "diag" else "fwd"]
     L, _, lanes = stack.shape
@@ -444,18 +485,35 @@ def timed(torch, family, libs, kernels, x, label, dt, dtype, res):
             [v.clone() if torch.is_tensor(v) else v for v in ins]
             for _ in range(-(-COLD_BYTES // nbytes) - 1)]
 
-    def call(name, kern):
-        """([(outputs, C arguments)] per copy of the inputs, entry)."""
-        fn = getattr(libs[name], f"ssde_{kern}_{dt}")
-        tail = ((stack.shape[1], L, lanes) if family == "k3"
-                else (L, lanes))
-        sets = []
-        for ins in copies[kern]:
-            o = tuple(torch.empty(s, dtype=dtype, device="cuda")
-                      for s in OUTS[kern](L, lanes))
-            sets.append((o, [v.data_ptr() if torch.is_tensor(v) else v
-                             for v in (*ins, *o, *tail)] + [stream]))
-        return sets, fn
+    def entry(name, kern):
+        return getattr(libs[name], f"ssde_{kern}_{dt}")
+
+    def args(name, kern, ins):
+        """(outputs, C arguments, C arguments of this variant's D1a over
+        the same stack: D1b only) of kernel kern of variant `name` on the
+        inputs `ins` of its plain version. With the segment scratch, D1a
+        also writes it and D1b reads the one that D1a wrote. D1b's
+        outputs end with that D1a's, which they keep alive."""
+        o = [torch.empty(s, dtype=dtype, device="cuda")
+             for s in OUTS[kern](L, lanes)]
+        vals, pre, d1a_out = list(ins), None, []
+        tail = (stack.shape[1], L, lanes) if family == "k3" else (L, lanes)
+        if kern == "diag_filter_scan":
+            d1a_out, pre, _ = args(name, "diag_filter_totals",
+                                   [ins[0], x["h"], x["p0"]])
+            if segs[name]:
+                vals.insert(2, d1a_out[-1])
+        if kern == "diag_filter_totals" and segs[name]:
+            o.append(torch.empty((segs[name][dt] - 1, 5, lanes), dtype=dtype,
+                                 device="cuda"))
+        a = [v.data_ptr() if torch.is_tensor(v) else v
+             for v in (*vals, *o, *tail)] + [stream]
+        return o + d1a_out, a, pre
+
+    def launch(name, kern, a):
+        err = entry(name, kern)(*a)
+        if err:
+            sys.exit(f"tile_sweep: {name} {kern} {dt}: CUDA error {err}")
 
     with torch.no_grad():
         x64 = {n: v.double() if torch.is_tensor(v) else v
@@ -465,25 +523,45 @@ def timed(torch, family, libs, kernels, x, label, dt, dtype, res):
             r = plain(kern)(*(x64[n] for n in ARGS[kern]))
             ref[kern] = r if isinstance(r, tuple) else (r,)
     times = {(n, k): [] for n in names for k in kernels}
+    paired = {(n, key): [] for n in names
+              for key in ("us_after_d1a", "us_after_d1a_other")}
     for order in (names, names[::-1]):
         for name in order:
             for kern in kernels:
-                sets, fn = call(name, kern)
-                for _, a in sets:
-                    err = fn(*a)
-                    if err:
-                        sys.exit(f"tile_sweep: {name} {kern} {dt}: "
-                                 f"CUDA error {err}")
+                fn = entry(name, kern)
+                sets = [args(name, kern, ins) for ins in copies[kern]]
+                for _, a, pre in sets:
+                    if pre is not None:  # D1b's seeds
+                        launch(name, "diag_filter_totals", pre)
+                    launch(name, kern, a)
                 torch.cuda.synchronize()
                 t0 = torch.cuda.Event(enable_timing=True)
                 t1 = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(HOLD_CYCLES)
                 t0.record()
                 for r in range(100):
                     fn(*sets[r % len(sets)][1])
                 t1.record()
                 torch.cuda.synchronize()
                 times[(name, kern)].append(t0.elapsed_time(t1) * 10.0)
-                outs[(name, kern)] = sets[0][0]
+                if kern == "diag_filter_scan":
+                    d1a, n = entry(name, "diag_filter_totals"), len(sets)
+                    for key, shift in (("us_after_d1a", 0),
+                                       ("us_after_d1a_other", n // 2)):
+                        ev = [(torch.cuda.Event(enable_timing=True),
+                               torch.cuda.Event(enable_timing=True))
+                              for _ in range(100)]
+                        torch.cuda._sleep(HOLD_CYCLES)
+                        for r in range(100):
+                            d1a(*sets[(r + shift) % n][2])
+                            ev[r][0].record()
+                            fn(*sets[r % n][1])
+                            ev[r][1].record()
+                        torch.cuda.synchronize()
+                        paired[(name, key)].append(
+                            sum(a.elapsed_time(b) for a, b in ev) * 10.0)
+                # the outputs of the plain version (not the scratch)
+                outs[(name, kern)] = sets[0][0][:len(ref[kern])]
                 del sets
     for name in names:
         for kern in kernels:
@@ -492,7 +570,7 @@ def timed(torch, family, libs, kernels, x, label, dt, dtype, res):
                                for v in outs[(names[0], kern)]])
             want = torch.cat([v.reshape(-1) for v in ref[kern]])
             scale = max(1.0, float(want.abs().max()))
-            res["variants"][name][f"{kern}_{label}_{dt}"] = {
+            e = res["variants"][name][f"{kern}_{label}_{dt}"] = {
                 "us": times[(name, kern)],
                 "finite": bool(torch.isfinite(got).all()),
                 "max_diff_vs_first": float((got - first).abs().max()),
@@ -501,6 +579,9 @@ def timed(torch, family, libs, kernels, x, label, dt, dtype, res):
                 "max_err_vs_plain_f64_over_scale":
                     float((got.double() - want).abs().max()) / scale,
             }
+            if kern == "diag_filter_scan":
+                for key in ("us_after_d1a", "us_after_d1a_other"):
+                    e[key] = paired[(name, key)]
 
 
 if __name__ == "__main__":

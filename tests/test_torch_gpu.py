@@ -403,16 +403,19 @@ def test_forward_kernels_match_plain(cuda, d, n, L):
 @pytest.mark.parametrize("d", [1, 2, 3])
 @pytest.mark.parametrize("n,L", [(80, None), (2048, None), (5000, None),
                                  (20001, None), (5000, 1), (5000, 3),
-                                 (5000, 5), (5000, 27)])
+                                 (5000, 5), (5000, 8), (5000, 16),
+                                 (5000, 24), (5000, 27)])
 def test_diag_kernels_alone_match_plain(cuda, typ, d, n, L):
     """D1a, D1b, D3a and D3b alone against their plain versions, with the
     inputs and calls of chip_smoke.py's phase 2e: f64 within 1e-10 of the
     output's scale, f32 (on the inputs rounded to f32) against the f64
-    plain version within 1e-4. Lanes below, at and across D1a's 32-lane
-    and the walks' 128-lane CUDA blocks, not a multiple of 4 (n = 5000:
-    157 d lanes); L = 1 (three of D1a's four segments empty, no next step
-    to load ahead), 3, 5 and 27 (D1a's last segments short: 2, 2, 1, 0 and
-    7, 7, 7, 6 steps). One launch of each per call."""
+    plain version within 1e-4. Lanes below, at and across the 32-lane
+    CUDA blocks of D1a, D1b and D3a and D3b's 128-lane one, not a multiple
+    of 4 (n = 5000: 157 d lanes); L = 1 (three of the four segments empty,
+    no next step to load ahead), 3, 5 and 27 (the last segments short: 2,
+    2, 1, 0 and 7, 7, 7, 6 steps), 8, 16 and 24 (L = 32's segment
+    boundaries: chip_smoke.D_CUTS). One launch of each per call, and one
+    more of D1a for D1b's seeds."""
     from chip_smoke import D_ALONE as calls
     from chip_smoke import diag_inputs
 
@@ -427,7 +430,8 @@ def test_diag_kernels_alone_match_plain(cuda, typ, d, n, L):
             assert bool(torch.isfinite(g).all()), (k, dtype)
             scale = max(1.0, float(r.abs().max()))
             errs[(k, dtype)] = float((g - r).abs().max()) / scale
-    assert all(cf.LAUNCHES[k] == 2 for k in calls), cf.LAUNCHES
+    want = {k: 4 if k == "diag_filter_totals" else 2 for k in calls}
+    assert {k: cf.LAUNCHES[k] for k in calls} == want, cf.LAUNCHES
     bad = {k: e for k, e in errs.items()
            if e > (1e-10 if k[1] == torch.float64 else 1e-4)}
     assert not bad, errs
