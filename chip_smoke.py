@@ -74,6 +74,21 @@ non-zero before the final line:
      analytic_grad=True)` in f32 against its plain version in f64 on the
      card, nllk (1e-4 relative) and gradient (1e-4 of |nllk|) gated, the
      per-component errors printed beside docs/ACCURACY.md's TPU figures;
+     3f-3h. the closed-form family (plain torch ops, no hand-written
+     kernel: the JAX package's densities reach no pallas_call), with the
+     data of the JAX package's tools/bench_configs.py simulated here with
+     its seeds: 3f. config 1, BM (n = 1,000), fitted in f32 and f64:
+     convergence, sigma within 5% of 0.8, the f32 estimates within 1e-3
+     of the f64 fit's; 3g. config 2, OU with s(time, k=8, bs='cs') on mu
+     and kappa (n = 3,000), the Laplace approximation in f32 and f64:
+     convergence, tau within 5% of 2, the f32 nllk within 1e-4 relative
+     of the f64 fit's, bhat and cov_fixed finite; 3h. config 5b, the
+     1M-step CIR (mu 2, beta 0.8, sigma 0.5, seed 6) in f32: convergence,
+     each parameter within 5%, the f32 nllk (1e-4 relative) and gradient
+     (1e-4 of |nllk|) against the f64 evaluation on the card at the
+     optimum and the start; then its nllk+grad wall (110 calls), device
+     busy share and device operations per call (profiler) and peak
+     memory, on the SUMMARY line under "closed_form";
   4. each kernel against its plain version at its fit's shapes (the
      diag kernels at both the OU_SSM and the BM_SSM fit's, the
      element-space kernels and K8 at config 5a's; f64, max abs error
@@ -294,6 +309,64 @@ def bm_ssm_1m(n=1_000_000):
             "y": x + rng.normal(size=n) * sobs}
 
 
+# The closed-form configurations of the JAX package's benchmark
+# (tools/bench_configs.py config1, config2, config5_cir), simulated as
+# there, with the same seeds: (SDE keyword arguments, truth).
+
+
+def config1(n=1000):
+    """BM, constant parameters, an elephant-scale track (~1k steps)."""
+    rng = np.random.default_rng(0)
+    times = np.cumsum(rng.uniform(0.4, 0.6, size=n))
+    dt = np.diff(times)
+    z = np.concatenate([[0.0], np.cumsum(
+        0.4 * dt + 0.8 * np.sqrt(dt) * rng.normal(size=n - 1))])
+    data = {"ID": np.zeros(n, int), "time": times, "z": z}
+    return (dict(data=data, type="BM", response="z", par0=[0.0, 1.0]),
+            {"mu": 0.4, "sigma": 0.8})
+
+
+def config2(n=3000):
+    """OU with spline-varying mean and variance via s(time, k=8, bs='cs')."""
+    rng = np.random.default_rng(1)
+    dt = 0.3
+    times = np.arange(n) * dt
+    mu_t = 1.0 + 0.8 * np.sin(2 * np.pi * times / times[-1])
+    kap_t = np.exp(0.5 * np.cos(2 * np.pi * times / times[-1]))
+    tau = 2.0
+    x = np.empty(n)
+    x[0] = mu_t[0]
+    for i in range(1, n):
+        e = np.exp(-dt / tau)
+        x[i] = mu_t[i - 1] + e * (x[i - 1] - mu_t[i - 1]) + rng.normal() * \
+            np.sqrt(kap_t[i - 1] * (1 - e * e))
+    data = {"ID": np.zeros(n, int), "time": times, "z": x}
+    sm = "~s(time, k=8, bs='cs')"
+    return (dict(formulas={"mu": sm, "tau": "~1", "kappa": sm}, data=data,
+                 type="OU", response="z", par0=[1.0, 1.0, 1.0]),
+            {"tau": 2.0})
+
+
+def config5b(n=1_000_000):
+    """The 1M-step CIR of BASELINE config 5 (part 2): exact
+    noncentral-chi^2 transitions, dt = 0.1, mu = 2, beta = 0.8,
+    sigma = 0.5, seed 6."""
+    rng = np.random.default_rng(6)
+    dt = 0.1
+    mu_t, beta_t, sigma_t = 2.0, 0.8, 0.5
+    c = 2 * beta_t / (sigma_t**2 * (1 - np.exp(-beta_t * dt)))
+    df = 4 * beta_t * mu_t / sigma_t**2
+    ebd = np.exp(-beta_t * dt)
+    z = np.empty(n)
+    z[0] = mu_t
+    draws = rng.noncentral_chisquare
+    for i in range(1, n):
+        z[i] = draws(df, 2 * c * z[i - 1] * ebd) / (2 * c)
+    data = {"ID": np.zeros(n, np.int32), "time": np.arange(n) * dt, "z": z}
+    return (dict(data=data, type="CIR", response="z", par0=[1.5, 1.0, 0.7]),
+            {"mu": 2.0, "beta": 0.8, "sigma": 0.5})
+
+
 # ---------------------------------------------------------------------------
 # helpers
 # ---------------------------------------------------------------------------
@@ -442,10 +515,12 @@ def kernel_of(key):
     return None
 
 
-def profile_device_ms(fn, reps, torch):
+def profile_device_ms(fn, reps, torch, stats=None):
     """Device time per call of every kernel of the port (by KERNELS name)
     and the device's busy share of the wall time, from torch.profiler
-    over `reps` calls of fn (after one warm-up call)."""
+    over `reps` calls of fn (after one warm-up call). `stats`, when
+    given, receives "device_ops": the device operations (kernels, copies,
+    fills) per call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -459,6 +534,7 @@ def profile_device_ms(fn, reps, torch):
         wall_ms = (time.perf_counter() - t) * 1e3
     per_kernel = {name: 0.0 for name, _, _ in KERNELS}
     busy_us = 0.0
+    ops = 0
     top = []
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
@@ -467,6 +543,7 @@ def profile_device_ms(fn, reps, torch):
         if us is None:
             us = e.self_cuda_time_total
         busy_us += us
+        ops += e.count
         key = e.key
         top.append((us / reps, e.count // reps, key[:90]))
         name = kernel_of(key)
@@ -474,6 +551,8 @@ def profile_device_ms(fn, reps, torch):
             per_kernel[name] += us
     for us, count, key in sorted(top, reverse=True)[:15]:
         log(f"    {us:9.1f} us  x{count:3d}  {key}")
+    if stats is not None:
+        stats["device_ops"] = ops / reps
     return ({k: v / 1e3 / reps for k, v in per_kernel.items()},
             busy_us / 1e3 / reps, wall_ms / reps)
 
@@ -879,6 +958,142 @@ def phase_audit(torch):
     return out
 
 
+def closed_form_fit(torch, label, kw, dtype):
+    """Fit a closed-form model with `SDE(**kw, device="cuda",
+    dtype=dtype).fit()`; no exception is caught. Returns (sde, result,
+    wall s)."""
+    from smoothsde_tpu_torch import SDE
+
+    t = time.time()
+    sde = SDE(**kw, device="cuda", dtype=dtype)
+    res = sde.fit()
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    log(f"[{label}] {kw['type']} fit in {str(dtype)[6:]}: {wall:.2f} s, "
+        f"{res.counts['evals']} marginal nllk+grad evals (BFGS "
+        f"{res.counts}), convergence via {res.convergence_via}, par "
+        f"{res.par.tolist()}, nllk {res.value:.6f}")
+    return sde, res, wall
+
+
+def phase_config1(torch):
+    """Phase 3f: config 1 (BM, n = 1,000) in f32 and f64 on the card.
+    Gates: convergence, sigma within 5% of 0.8 (n = 1,000 cannot pin mu
+    to 5%: its standard error is ~9%), the f32 estimates within 1e-3 of
+    the f64 fit's."""
+    kw, truth = config1()
+    sde, res, wall = closed_form_fit(torch, "3f", kw, torch.float32)
+    _, res64, wall64 = closed_form_fit(torch, "3f", kw, torch.float64)
+    mu, sigma = (float(v) for v in sde.par(t=0)[0])
+    dpar = float(np.max(np.abs(res.par - res64.par)))
+    check(res.convergence == 0 and res64.convergence == 0,
+          f"3f: BM fit did not converge: {res.message} / {res64.message}")
+    check(abs(sigma - truth["sigma"]) / truth["sigma"] < 0.05,
+          f"3f: sigma {sigma} not within 5% of {truth['sigma']}")
+    check(dpar <= 1e-3, f"3f: f32 estimates {dpar:.3e} from the f64 fit's")
+    check(np.all(np.isfinite(res.cov_fixed)), "3f: cov_fixed not finite")
+    out = {"wall_s": wall, "evals": res.counts["evals"],
+           "via": res.convergence_via, "mu": mu, "sigma": sigma,
+           "truth": truth, "nllk": res.value, "f64_wall_s": wall64,
+           "f64_nllk": res64.value, "par_f32_minus_f64_max_abs": dpar}
+    log(f"[3f] {json.dumps(out)}")
+    return out
+
+
+def phase_config2(torch):
+    """Phase 3g: config 2 (OU with s(time, k=8, bs='cs') on mu and kappa,
+    n = 3,000), the Laplace approximation on the card, in f32 and f64.
+    Gates: convergence, tau within 5% of 2.0, the f32 nllk within 1e-4
+    relative of the f64 fit's, bhat and cov_fixed finite."""
+    kw, truth = config2()
+    sde, res, wall = closed_form_fit(torch, "3g", kw, torch.float32)
+    _, res64, wall64 = closed_form_fit(torch, "3g", kw, torch.float64)
+    tau = float(sde.par(t=0)[0, 1])
+    ev = abs(res.value - res64.value) / abs(res64.value)
+    check(res.convergence == 0, f"3g: OU fit did not converge: {res.message}")
+    check(abs(tau - truth["tau"]) / truth["tau"] < 0.05,
+          f"3g: tau {tau} not within 5% of {truth['tau']}")
+    check(ev <= 1e-4, f"3g: f32 nllk {res.value} vs f64 {res64.value}: "
+          f"rel {ev:.3e}")
+    check(len(res.bhat) > 0 and np.all(np.isfinite(res.bhat)),
+          "3g: bhat empty or not finite")
+    check(np.all(np.isfinite(res.cov_fixed)), "3g: cov_fixed not finite")
+    out = {"wall_s": wall, "evals": res.counts["evals"],
+           "via": res.convergence_via, "tau": tau, "truth": truth,
+           "nllk": res.value, "f64_nllk": res64.value, "nllk_rel": ev,
+           "f64_wall_s": wall64, "f64_evals": res64.counts["evals"],
+           "n_inner": len(res.bhat), "lambda": sde.lambda_().tolist(),
+           "timings_s": res.timings}
+    log(f"[3g] {json.dumps(out)}")
+    return out
+
+
+def phase_config5b(torch, card):
+    """Phase 3h: config 5b (the 1M-step CIR) fitted in f32 on the card.
+    Gates: convergence, each parameter within 5% of the truth, the f32
+    nllk within 1e-4 relative and the gradient within 1e-4 of |nllk| of
+    the f64 evaluation on the card, at the optimum (q ~ 11.8, Olver's
+    branch) and at the start (q ~ 5.1, the series and Hankel branches).
+    Then the times: nllk+grad wall (110 calls), device busy and idle
+    share and device operations per call (torch.profiler), peak memory."""
+    from smoothsde_tpu_torch import SDE
+    from smoothsde_tpu_torch.infer.fit import make_val_grad
+
+    t = time.time()
+    kw, truth = config5b()
+    log(f"[3h] simulated in {time.time() - t:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    sde, res, wall = closed_form_fit(torch, "3h", kw, torch.float32)
+    fit_peak = torch.cuda.max_memory_allocated()
+    est = dict(zip(truth, (float(v) for v in sde.par(t=0)[0])))
+    check(res.convergence == 0, f"3h: CIR fit did not converge: {res.message}")
+    for name, want in truth.items():
+        check(abs(est[name] - want) / want < 0.05,
+              f"3h: {name} {est[name]} not within 5% of {want}")
+    check(np.all(np.isfinite(res.cov_fixed)), "3h: cov_fixed not finite")
+
+    vg32 = make_val_grad(sde.bundle())
+    vg64 = make_val_grad(SDE(**kw, device="cuda",
+                             dtype=torch.float64).bundle())
+    accuracy = {}
+    for where, x in (("optimum", res.par),
+                     ("start", sde.bundle().packer.outer_init())):
+        v32, g32, _ = vg32(x)
+        v64, g64, _ = vg64(x)
+        ev = abs(v32 - v64) / abs(v64)
+        eg = float(np.max(np.abs(g32 - g64)) / abs(v64))
+        accuracy[where] = {"nllk_f32": v32, "nllk_f64": v64, "nllk_rel": ev,
+                           "grad_f32": g32.tolist(), "grad_f64": g64.tolist(),
+                           "grad_err_over_nllk": eg}
+        check(np.isfinite(v32) and np.all(np.isfinite(g32)),
+              f"3h: non-finite f32 nllk or gradient at the {where}")
+        check(ev <= 1e-4, f"3h: f32 nllk at the {where}: rel {ev:.3e}")
+        check(eg <= 1e-4, f"3h: f32 gradient at the {where}: {eg:.3e}")
+    log(f"[3h] f32 vs f64 on the card: {json.dumps(accuracy)}")
+
+    x = res.par
+    torch.cuda.reset_peak_memory_stats()
+    vg32(x)
+    peak = torch.cuda.max_memory_allocated()
+    stats = {}
+    _, busy_ms, prof_wall_ms = profile_device_ms(lambda: vg32(x), 10, torch,
+                                                 stats)
+    vg = wall_ms(lambda: vg32(x), 110, 5)
+    out = {"card": card, "n": len(kw["data"]["z"]), "fit_wall_s": wall,
+           "fit_evals": res.counts["evals"], "bfgs": res.counts,
+           "via": res.convergence_via, "estimates": est, "truth": truth,
+           "nllk": res.value, "nllk_grad_1M_ms": vg,
+           "profile_per_nllk_grad_ms": {"device_busy": busy_ms,
+                                        "wall": prof_wall_ms},
+           "device_idle_share": 1.0 - busy_ms / prof_wall_ms,
+           "device_ops_per_nllk_grad": stats["device_ops"],
+           "peak_memory_bytes_nllk_grad": peak,
+           "peak_memory_bytes_fit": fit_peak,
+           "accuracy_f32_vs_f64": accuracy}
+    log(f"[3h] {json.dumps(out)}")
+    return out
+
+
 def diag_fit(torch, label, typ, data, response, par0, truth):
     """Phases 3b / 3c: fit a 1M-step scalar-state model on the card in f32
     with launch counts from zero; gates as in phase 3, truth given per
@@ -924,7 +1139,7 @@ def diag_fit(torch, label, typ, data, response, par0, truth):
                 for dt in (torch.float32, torch.float64))
     accuracy = {}
     for where, x in (("optimum", res.par), ("start", b32.packer.outer_init())):
-        v32, g32 = make_val_grad(b32)(x)  # the fit's own evaluation
+        v32, g32, _ = make_val_grad(b32)(x)  # the fit's own evaluation
         v64, g64 = diag_outer_value_grad(typ, b64, DiagPlainCore, d64, x,
                                          torch)
         ev = abs(v32 - v64) / abs(v64)
@@ -1352,7 +1567,7 @@ def main():
     x_points = {"optimum": res.par, "start": b32.packer.outer_init()}
     plain64 = {}
     for label, x in x_points.items():
-        v32, g32 = make_val_grad(b32)(x)  # the fit's own evaluation
+        v32, g32, _ = make_val_grad(b32)(x)  # the fit's own evaluation
         v64, g64 = outer_value_grad(b64, CtcrwPlainCore, d64, x, torch)
         plain64[label] = (v64, g64)
         ev = abs(v32 - v64) / abs(v64)
@@ -1381,6 +1596,14 @@ def main():
                            plain64)
     log("[3e] f32 accuracy at the JAX package's audit point (1M steps)")
     audit = phase_audit(torch)
+
+    log("[3f] config 1: BM fit on the card (n = 1,000), f32 and f64")
+    closed = {"config1_bm": phase_config1(torch)}
+    log("[3g] config 2: OU with smooths, the Laplace approximation on the "
+        "card (n = 3,000), f32 and f64")
+    closed["config2_ou_smooth"] = phase_config2(torch)
+    log("[3h] config 5b: 1M-step CIR fit on the card, f32")
+    closed["config5b_cir"] = phase_config5b(torch, card)
 
     log("[4] kernels vs plain at the fit's shapes, and times")
     ops_k, ops_p = cf.OPS["kernels"], cf.OPS["plain"]
@@ -1508,6 +1731,7 @@ def main():
     fit_line["kernel_checks_k1"] = k1
     fit_line["kernel_checks_diag_alone"] = kd
     fit_line["accuracy_audit_point"] = audit
+    fit_line["closed_form"] = closed
     for fit, times in ((ou, ou_times), (bm, bm_times)):
         fit_line[fit["typ"]] = {"fit": fit["summary"], **times}
     log("SUMMARY " + json.dumps(fit_line))

@@ -2,10 +2,12 @@
 
 A second package beside the JAX reference `smoothsde_tpu`, with the same
 module layout (ops/, models/, formula/, infer/, api/, utils/). It imports
-torch and never jax. The CTCRW state-space fit runs end to end through
-`SDE(...).fit()`; its filter, cross-block prefix and Fisher-score
-backward are hand-written CUDA kernels for Hopper (csrc/), each with a
-plain PyTorch version that the CPU tests run. The device is explicit:
+torch and never jax. The state-space fits (CTCRW, BM_SSM, OU_SSM) run end
+to end through `SDE(...).fit()`; their filters, cross-block prefix and
+Fisher-score backwards are hand-written CUDA kernels for Hopper (csrc/),
+each with a plain PyTorch version that the CPU tests run. The
+closed-form models (BM, BM_t, OU, CIR) run on plain torch ops, with
+smooths and random effects integrated out by the Laplace approximation. The device is explicit:
 `SDE(..., device="cuda")` by default, `device="cpu"` for the plain
 versions.
 """

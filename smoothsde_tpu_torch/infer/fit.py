@@ -1,13 +1,22 @@
-"""Outer optimization (host BFGS) and the sdreport outer Hessian.
+"""Outer optimization (host BFGS over the Laplace marginal) and the
+sdreport equivalent (outer Hessian, joint precision of all parameters).
 
 Port of the host-optimizer path of smoothsde_tpu/infer/fit.py
-(fit_model with optimizer="scipy", and _sdreport in host mode) for
-models without inner (random-effect) coefficients, where the marginal
-is the joint nllk itself (infer/laplace.py:62-66 of the JAX package).
-This mirrors the reference's fit path (R/sde.R:683-720): optim(...,
-method="BFGS") over fn/gr, then the outer Hessian by central finite
-differences of the gradient (optimHess's strategy) and its inverse as
-`cov_fixed`.
+(fit_model with optimizer="scipy", and _sdreport in host mode). This
+mirrors the reference's fit path (R/sde.R:683-720): optim(...,
+method="BFGS") over fn/gr, here the Laplace marginal of
+infer/laplace.py and its exact implicit-function gradient (the joint
+nllk itself when there are no inner coefficients), then the outer
+Hessian by central finite differences of the gradient (optimHess's
+strategy) and its inverse as `cov_fixed`. With inner coefficients the
+joint precision over (outer, inner) is assembled as
+
+    Q = [[H_marg + J_tb J_bb^-1 J_bt,  J_tb],
+         [J_bt,                        J_bb]]
+
+from the Hessian J of the joint nllk (torch.func.hessian), whose Schur
+complement reproduces Cov(theta) = H_marg^-1 and whose conditional
+b|theta precision is the joint curvature J_bb.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from smoothsde_tpu_torch.infer.laplace import make_laplace
 from smoothsde_tpu_torch.utils.misc import prec_to_cov
 
 
@@ -26,15 +36,17 @@ from smoothsde_tpu_torch.utils.misc import prec_to_cov
 class FitResult:
     par: np.ndarray  # outer (fixed-effect-level) estimates
     par_names: List[str]
-    value: float  # nllk at the optimum
+    value: float  # marginal nllk at the optimum
     convergence: int
     counts: dict  # scipy's function/gradient counts + "evals" (val+grad)
     systime: float
     message: str
-    bhat: np.ndarray  # inner estimates (empty: no random effects)
+    bhat: np.ndarray  # inner (random-effect) estimates, free entries
     inner_names: List[str]
     H_marg: Optional[np.ndarray] = None
     cov_fixed: Optional[np.ndarray] = None
+    joint_precision: Optional[np.ndarray] = None
+    joint_names: Optional[List[str]] = None
     timings: Optional[dict] = None  # wall-clock per stage, seconds
     # which criterion earned convergence == 0: 'optimizer', 'gtol',
     # 'slope_probe', 'descent_probe', or 'none'
@@ -43,18 +55,31 @@ class FitResult:
 
 
 def make_val_grad(bundle):
-    """fn(x: np.ndarray) -> (value, gradient) of the joint nllk at the
-    outer vector x, evaluated on the bundle's device and dtype (x is
-    rounded to the working dtype first, as the JAX package's f32 path
-    does)."""
+    """fn(x: np.ndarray, b0=None) -> (value, gradient, bhat) of the
+    Laplace marginal at the outer vector x, from the inner warm start b0
+    (the inner initial values when None), evaluated on the bundle's
+    device and dtype (x is rounded to the working dtype first, as the
+    JAX package's f32 path does). Without inner coefficients the value
+    is the joint nllk and bhat is empty."""
     packer = bundle.packer
+    marginal = make_laplace(bundle.joint_nllk, packer)
+    b_init = packer.inner_init()
 
-    def val_grad(x):
+    def val_grad(x, b0=None):
         xt = torch.tensor(np.asarray(x, np.float64), dtype=bundle.dtype,
                           device=bundle.device, requires_grad=True)
-        v = bundle.joint_nllk(packer.unpack(xt))
+        if not packer.n_inner:  # the joint nllk: no inner tensors at all
+            v = bundle.joint_nllk(packer.unpack(xt))
+            b = np.zeros(0)
+        else:
+            bt = torch.tensor(np.asarray(b_init if b0 is None else b0,
+                                         np.float64),
+                              dtype=bundle.dtype, device=bundle.device)
+            v, b = marginal(xt, bt)
+            b = b.to("cpu", torch.float64).numpy()
         (g,) = torch.autograd.grad(v, xt)
-        return float(v.detach()), g.detach().to("cpu", torch.float64).numpy()
+        return (float(v.detach()),
+                g.detach().to("cpu", torch.float64).numpy(), b)
 
     return val_grad
 
@@ -70,29 +95,38 @@ def fit_model(
     from scipy import optimize
 
     packer = bundle.packer
-    if packer.n_inner:
-        raise NotImplementedError(
-            "fits with inner (random-effect) coefficients need the Laplace "
-            "approximation; see ROADMAP.md queue 1 item 7"
-        )
     raw_val_grad = make_val_grad(bundle)
     n_evals = 0
 
-    def val_grad(x):
+    def val_grad(x, b0=None):
         nonlocal n_evals
         n_evals += 1
-        return raw_val_grad(x)
+        return raw_val_grad(x, b0)
 
     x0 = packer.outer_init()
+    b_warm = packer.inner_init()
     timings = {}
+    if len(x0) == 0:
+        # everything is integrated out (e.g. REML with no free variance
+        # parameters): a single marginal evaluation is the fit
+        v, _, b = val_grad(x0, b_warm)
+        return FitResult(
+            par=np.zeros(0), par_names=[], value=v, convergence=0,
+            counts={"function": 1, "gradient": 1, "evals": n_evals},
+            systime=0.0, message="no outer parameters", bhat=b,
+            inner_names=packer.inner_names(), convergence_via="optimizer",
+        )
     cache = {}
 
     def eval_at(x):
+        nonlocal b_warm
         key = np.asarray(x, float).tobytes()
         if key not in cache:
-            v, g = val_grad(x)
+            v, g, b = val_grad(x, b_warm)
+            if np.isfinite(v):
+                b_warm = b  # warm start of the next inner solve
             cache.clear()
-            cache[key] = (v, g)
+            cache[key] = (v, g, b)
         return cache[key]
 
     # scipy BFGS reports "precision loss" when the line search stalls at
@@ -116,7 +150,7 @@ def fit_model(
         return v if np.isfinite(v) else BIG
 
     def safe_jac(x):
-        v, g = eval_at(x)
+        v, g, _ = eval_at(x)
         if not np.isfinite(v):
             return np.zeros_like(g)
         return np.where(np.isfinite(g), g, 0.0)
@@ -136,14 +170,14 @@ def fit_model(
         )
         total_nfev += int(res.nfev)
         total_njev += int(getattr(res, "njev", 0))
-        v_new, g_new = eval_at(np.asarray(res.x, float))
+        v_new, g_new, _ = eval_at(np.asarray(res.x, float))
         improved = v_new < safe_fun(x_cur) - 1e-10
         x_cur = np.asarray(res.x, float)
         if res.success or np.max(np.abs(g_new)) < _gtol(v_new) or not improved:
             break
 
     x_hat = x_cur
-    v_hat, g_hat = eval_at(x_hat)
+    v_hat, g_hat, b_hat = eval_at(x_hat)
     via = "none"
     if np.isfinite(v_hat):
         if bool(res.success):
@@ -180,43 +214,62 @@ def fit_model(
         counts={"function": total_nfev, "gradient": total_njev},
         systime=timings["optimize"],
         message=str(res.message),
-        bhat=np.zeros(0),
+        bhat=b_hat,
         inner_names=packer.inner_names(),
         convergence_via=via,
     )
     if compute_sdreport:
         t1 = time.time()
-        _sdreport(out, val_grad, fd_step)
+        _sdreport(out, bundle, val_grad, fd_step)
         timings["sdreport"] = time.time() - t1
     out.counts["evals"] = n_evals
     out.timings = timings
     return out
 
 
-def _sdreport(out, val_grad, fd_step):
-    """Outer Hessian by central differences of the gradient (the
-    reference's sdreport, R/sde.R:702-704, for a model with no inner
-    coefficients), written onto `out`."""
+def _sdreport(out, bundle, val_grad, fd_step):
+    """Outer Hessian by central differences of the marginal's gradient,
+    every inner solve warm-started at bhat (the reference's sdreport,
+    R/sde.R:702-704), and with inner coefficients the joint precision;
+    written onto `out`."""
+    packer = bundle.packer
     x_hat = np.asarray(out.par, float)
+    b_hat = np.asarray(out.bhat, float)
     n_out = len(x_hat)
     if not n_out:
         out.H_marg = np.zeros((0, 0))
         out.cov_fixed = np.zeros((0, 0))
+    else:
+        def fd_hessian(hs):
+            G = np.stack([
+                val_grad(x_hat + s * hs[i] * np.eye(n_out)[i], b_hat)[1]
+                for s in (1.0, -1.0) for i in range(n_out)
+            ])
+            return (G[:n_out] - G[n_out:]) / (2.0 * hs[:, None])
+
+        hs = fd_step * np.maximum(1.0, np.abs(x_hat))
+        H = fd_hessian(hs)
+        # a perturbed point can land in a non-finite region; retry the
+        # offending coordinates with a 10x smaller step
+        bad = ~np.isfinite(H).all(axis=1)
+        if bad.any():
+            H[bad] = fd_hessian(hs / 10.0)[bad]
+        out.H_marg = 0.5 * (H + H.T)
+        out.cov_fixed = prec_to_cov(out.H_marg)
+
+    n_in = packer.n_inner
+    if n_in == 0:
         return
 
-    def fd_hessian(hs):
-        G = np.stack([
-            val_grad(x_hat + s * hs[i] * np.eye(n_out)[i])[1]
-            for s in (1.0, -1.0) for i in range(n_out)
-        ])
-        return (G[:n_out] - G[n_out:]) / (2.0 * hs[:, None])
+    def joint_vec(z):
+        return bundle.joint_nllk(packer.unpack(z[:n_out], z[n_out:]))
 
-    hs = fd_step * np.maximum(1.0, np.abs(x_hat))
-    H = fd_hessian(hs)
-    # a perturbed point can land in a non-finite region; retry the
-    # offending coordinates with a 10x smaller step
-    bad = ~np.isfinite(H).all(axis=1)
-    if bad.any():
-        H[bad] = fd_hessian(hs / 10.0)[bad]
-    out.H_marg = 0.5 * (H + H.T)
-    out.cov_fixed = prec_to_cov(out.H_marg)
+    z_hat = torch.tensor(np.concatenate([x_hat, b_hat]), dtype=bundle.dtype,
+                         device=bundle.device)
+    J = torch.func.hessian(joint_vec)(z_hat).to("cpu", torch.float64).numpy()
+    J_tb = J[:n_out, n_out:]
+    J_bb = J[n_out:, n_out:]
+    top_left = out.H_marg + J_tb @ np.linalg.solve(J_bb, J_tb.T)
+    Q = np.block([[top_left, J_tb], [J_tb.T, J_bb]])
+    out.joint_precision = 0.5 * (Q + Q.T)
+    out.joint_names = packer.outer_names() + packer.inner_names()

@@ -1,18 +1,25 @@
-"""Joint negative log-likelihood assembly for the ported state-space
-models.
+"""Penalized joint negative log-likelihood assembly.
 
-Port of smoothsde_tpu/infer/objective.py (build_objective, the isotropic
-state-space branch, objective.py:556-571 of the JAX package):
+Port of smoothsde_tpu/infer/objective.py (build_objective):
 
-    nllk(params) = -loglik(par_matrix(params))
+    nllk(params) = -loglik(par_matrix(params)) + penalty(coeff_re, lambda)
 
-with par_matrix the (n, n_par) working-scale linear predictor built from
-the fixed-effect design blocks, and loglik the Kalman filter on the fused
-kernels: CTCRW through ops/kalman_soa.ctcrw_loglik_soa (scan="fused",
-analytic_grad=True, as the JAX package's CTCRW branch), BM_SSM / OU_SSM
-through ops/diag_fused.diag_ssm_loglik_fused. The slice is these models
-with formulas of intercepts and linear/factor terms, no random effects
-or smooths, no user H or P0, no mesh; everything else raises
+with par_matrix the (n, n_par) working-scale linear predictor
+(X_fe coeff_fe + X_re coeff_re, per-parameter blocks, the random-effect
+columns optionally decay-modulated), and loglik one of:
+  - the closed-form models BM, BM_t, OU, CIR: the transition-density sum
+    of ops/densities.py (objective.py:414-424 of the JAX package), plain
+    torch ops, so torch.func transforms it to any order and the Laplace
+    approximation (infer/laplace.py) integrates smooths and random
+    effects out;
+  - the isotropic state-space models on the fused kernels: CTCRW through
+    ops/kalman_soa.ctcrw_loglik_soa (scan="fused", analytic_grad=True),
+    BM_SSM / OU_SSM through ops/diag_fused.diag_ssm_loglik_fused
+    (objective.py:556-571). Their gradients are reverse-only
+    autograd.Functions, so these models take no inner coefficients yet.
+
+Everything outside this (a state-space model with smooths, random
+effects or REML; user H or P0; ESEAL_SSM; a mesh) raises
 NotImplementedError naming its ROADMAP.md item.
 """
 
@@ -26,43 +33,58 @@ import torch
 
 from smoothsde_tpu_torch.infer.params import ParamBlock, ParamPacker
 from smoothsde_tpu_torch.models.registry import ModelSpec
+from smoothsde_tpu_torch.ops.densities import (
+    closed_form_loglik,
+    prepare_closed_form_data,
+)
 from smoothsde_tpu_torch.ops.diag_fused import (
     diag_ssm_loglik_fused,
     prepare_diag_data,
 )
 from smoothsde_tpu_torch.ops.kalman_soa import (
     ctcrw_loglik_soa,
+    precompute_dt,
     prepare_ctcrw_data,
 )
+from smoothsde_tpu_torch.ops.penalty import make_penalty
 
-PORTED_TYPES = ("CTCRW", "BM_SSM", "OU_SSM")
+CLOSED_FORM_TYPES = ("BM", "BM_t", "OU", "CIR")
+SSM_TYPES = ("CTCRW", "BM_SSM", "OU_SSM")
+PORTED_TYPES = CLOSED_FORM_TYPES + SSM_TYPES
 
 _ROADMAP = {
-    "random_effects": "queue 1 item 7 (Laplace and random effects)",
-    "closed_form": "queue 1 item 8b (closed-form family BM/BM_t/OU/CIR)",
-    "generic": "queue 1 item 8c (generic filters: user H/P0, ESEAL_SSM)",
+    "ssm_inner": "queue 1 item 2 (the state-space half: the forward-mode "
+                 "twin of the Kalman likelihood for smooths, random effects "
+                 "and REML)",
+    "generic": "queue 1 item 5 (generic and special filters: user H/P0, "
+               "ESEAL_SSM)",
+    "sharding": "queue 1 item 6 (sharding)",
 }
 
 
-def _unported(what: str, item: str):
+def unported(what: str, item: str):
     return NotImplementedError(
         f"{what} is outside the ported slice ({', '.join(PORTED_TYPES)}); "
         f"see ROADMAP.md {_ROADMAP[item]}"
     )
 
 
-def check_slice(spec: ModelSpec, design=None, other_data=None):
+def check_slice(spec: ModelSpec, design=None, other_data=None,
+                reml: bool = False):
     """Raise NotImplementedError for anything outside the ported slice."""
-    if spec.kind == "closed_form":
-        raise _unported(f"model type {spec.type!r}", "closed_form")
     if spec.type not in PORTED_TYPES:
-        raise _unported(f"model type {spec.type!r}", "generic")
+        raise unported(f"model type {spec.type!r}", "generic")
+    if spec.kind == "closed_form":
+        return
     other_data = other_data or {}
     for key in ("H", "P0"):
         if other_data.get(key) is not None:
-            raise _unported(f"other_data[{key!r}]", "generic")
+            raise unported(f"other_data[{key!r}]", "generic")
     if design is not None and sum(design.ncol_re) > 0:
-        raise _unported("smooth / random-effect terms", "random_effects")
+        raise unported(f"smooth / random-effect terms in a {spec.type} model",
+                       "ssm_inner")
+    if reml:
+        raise unported(f"REML for a {spec.type} model", "ssm_inner")
 
 
 def resolve_device(device) -> torch.device:
@@ -79,14 +101,19 @@ def resolve_device(device) -> torch.device:
 
 @dataclasses.dataclass
 class ObjectiveBundle:
-    """Everything the fitting layer needs."""
+    """Everything the fitting layer needs. For the closed-form models the
+    joint nllk is plain tensor arithmetic (torch.func transforms it: the
+    Laplace inner Newton, the log-det gradient, the joint precision); for
+    the state-space models it runs through reverse-only kernels."""
 
-    joint_nllk: Callable  # fn(full_params_dict) -> 0-d tensor
+    joint_nllk: Callable  # penalized, fn(full_params_dict) -> 0-d tensor
+    joint_nllk_unpenalized: Callable  # the penalty dropped
     packer: ParamPacker
     par_matrix: Callable  # fn(full_params_dict) -> (n, n_par) working scale
     n_obs: int
     dtype: torch.dtype
     device: torch.device
+    kind: str = ""  # 'closed_form' | 'ssm'
 
 
 def build_objective(
@@ -99,6 +126,7 @@ def build_objective(
     fixpar: Optional[List[str]] = None,
     init: Optional[Dict[str, np.ndarray]] = None,
     map_fix: Optional[Dict[str, np.ndarray]] = None,
+    reml: bool = False,
     *,
     dtype: torch.dtype = torch.float32,
     device="cuda",
@@ -107,11 +135,12 @@ def build_objective(
     fixpar = list(fixpar or [])
     init = dict(init or {})
     map_fix = dict(map_fix or {})
-    check_slice(spec, design, other_data)
+    check_slice(spec, design, other_data, reml)
     device = resolve_device(device)
     n, n_dim = obs.shape
     param_names = list(spec.param_names)
     n_par = len(param_names)
+    closed_form = spec.kind == "closed_form"
 
     def dev(x):
         return torch.as_tensor(np.asarray(x, np.float64)).to(
@@ -129,16 +158,51 @@ def build_objective(
         None if fe_const_rows[j] is not None else dev(X)
         for j, X in enumerate(design.fe_blocks())
     ]
+    re_blocks = [dev(X) for X in design.re_blocks()]
+    ncol_re_per_param = [X.shape[1] for X in design.re_blocks()]
     fe_off = np.concatenate([[0], np.cumsum(design.ncol_fe)]).astype(int)
+    re_off = np.concatenate([[0], np.cumsum(ncol_re_per_param)]).astype(int)
     p_fe = int(fe_off[-1])
+    p_re = int(re_off[-1])
+    n_smooth = design.n_lambda
+    has_re = p_re > 0
 
     # the per-step data (observations, f64-derived intervals, masks) is
     # built once on the device, not per evaluation
-    if spec.type == "CTCRW":
+    if closed_form:
+        data = prepare_closed_form_data(obs, times, ids, dtype=dtype,
+                                        device=device,
+                                        dt=precompute_dt(times, ids))
+    elif spec.type == "CTCRW":
         data = prepare_ctcrw_data(obs, times, ids, dtype=dtype, device=device)
     else:
         data = prepare_diag_data(spec.type, obs, times, ids, dtype=dtype,
                                  device=device)
+
+    # ---- decay-modulated splines (closed-form models only,
+    #      R/sde.R:634-653, nllk_sde.hpp:47-58) ----
+    decay_enabled = closed_form and other_data.get("t_decay") is not None
+    decay_cols: Dict[int, List[tuple]] = {}  # param j -> [(col, rate idx)]
+    n_decay = 1
+    t_decay_blocks = None
+    if decay_enabled:
+        t_decay = np.asarray(other_data["t_decay"], float)
+        if t_decay.size != n * n_par:
+            raise ValueError(
+                "'t_decay' should have length (number of parameters) x "
+                "(number of data)"
+            )
+        col_decay = np.atleast_1d(np.asarray(other_data["col_decay"], int))
+        ind_decay = np.atleast_1d(np.asarray(other_data["ind_decay"], int))
+        if len(col_decay) != len(ind_decay):
+            raise ValueError("'col_decay' and 'ind_decay' lengths differ")
+        n_decay = int(len(np.unique(ind_decay)))
+        t_decay_blocks = dev(t_decay.reshape(n_par, n))
+        for c, ind in zip(col_decay, ind_decay):
+            c0 = int(c) - 1  # 1-based as in the reference
+            j = int(np.searchsorted(re_off, c0, side="right") - 1)
+            decay_cols.setdefault(j, []).append(
+                (c0 - int(re_off[j]), int(ind) - 1))
 
     # ---- parameter blocks (same names and order as the JAX package) ----
     def _init(name, size, default=0.0):
@@ -148,25 +212,29 @@ def build_objective(
             raise ValueError(f"init for {name!r} has wrong size")
         return v
 
-    fixed_sobs = np.array([False])
-    if "log_sigma_obs" in map_fix:
-        fixed_sobs = np.atleast_1d(np.asarray(map_fix["log_sigma_obs"], bool))
-    # Data-driven default: sigma_obs ~ a fraction of the median step
-    # length, which keeps BFGS's first line search off the tau -> inf
-    # plateau when the true noise is far below 1 (objective.py:270-292
-    # of the JAX package).
-    step_med = float(
-        np.nanmedian(np.abs(np.diff(np.asarray(obs, float), axis=0)))
-    )
-    default_ls = (
-        float(np.log(0.3 * step_med))
-        if np.isfinite(step_med) and step_med > 0
-        else 0.0
-    )
-    blocks = [
-        ParamBlock("log_sigma_obs", _init("log_sigma_obs", 1, default_ls),
-                   fixed_sobs),
-    ]
+    blocks: List[ParamBlock] = []
+    if not closed_form:
+        fixed_sobs = np.array([False])
+        if "log_sigma_obs" in map_fix:
+            fixed_sobs = np.atleast_1d(
+                np.asarray(map_fix["log_sigma_obs"], bool))
+        # Data-driven default: sigma_obs ~ a fraction of the median step
+        # length, which keeps BFGS's first line search off the tau -> inf
+        # plateau when the true noise is far below 1 (objective.py:270-292
+        # of the JAX package).
+        step_med = float(
+            np.nanmedian(np.abs(np.diff(np.asarray(obs, float), axis=0)))
+        )
+        default_ls = (
+            float(np.log(0.3 * step_med))
+            if np.isfinite(step_med) and step_med > 0
+            else 0.0
+        )
+        blocks.append(ParamBlock(
+            "log_sigma_obs", _init("log_sigma_obs", 1, default_ls),
+            fixed_sobs))
+
+    # coeff_fe, with fixpar columns pinned (R/sde.R:621-632)
     cfe_fixed = np.zeros(p_fe, bool)
     for j, pname in enumerate(param_names):
         if pname in fixpar:
@@ -174,41 +242,102 @@ def build_objective(
     if "coeff_fe" in map_fix:
         cfe_fixed = cfe_fixed | np.asarray(map_fix["coeff_fe"], bool)
     blocks.append(ParamBlock("coeff_fe", _init("coeff_fe", p_fe), cfe_fixed))
-    # no smooths in the slice: log_lambda and coeff_re are fixed stubs
-    blocks.append(ParamBlock("log_lambda", _init("log_lambda", 1),
-                             np.ones(1, bool)))
-    blocks.append(ParamBlock("coeff_re", _init("coeff_re", 1),
-                             np.ones(1, bool)))
-    packer = ParamPacker(blocks, inner="coeff_re")
 
+    # log_lambda: one per penalty matrix; fixed when there are no smooths
+    ll_fixed = np.full(max(n_smooth, 1), not has_re)
+    if "log_lambda" in map_fix:
+        ll_fixed = ll_fixed | np.asarray(map_fix["log_lambda"], bool)
+    blocks.append(ParamBlock(
+        "log_lambda", _init("log_lambda", max(n_smooth, 1), 0.0), ll_fixed))
+
+    if decay_enabled:
+        blocks.append(ParamBlock(
+            "log_decay", _init("log_decay", n_decay, 0.0),
+            np.zeros(n_decay, bool)))
+
+    cre_fixed = np.zeros(max(p_re, 1), bool) if has_re else np.ones(1, bool)
+    if "coeff_re" in map_fix and has_re:
+        cre_fixed = cre_fixed | np.asarray(map_fix["coeff_re"], bool)
+    blocks.append(
+        ParamBlock("coeff_re", _init("coeff_re", max(p_re, 1)), cre_fixed))
+
+    # REML: integrate the fixed-effect coefficients out alongside the
+    # smooth coefficients (TMB's documented REML construction,
+    # random=c("coeff_fe", "coeff_re"); the reference only exposes ML,
+    # R/sde.R:656-658).
+    packer = ParamPacker(
+        blocks, inner=("coeff_fe", "coeff_re") if reml else "coeff_re")
+    packer.place(dtype, device)
+
+    # ---- linear predictor ----
     def par_matrix(full):
         cfe = full["coeff_fe"]
+        cre = full["coeff_re"]
         cols = []
         for j in range(n_par):
             cfe_j = cfe[fe_off[j] : fe_off[j + 1]]
             if fe_const_rows[j] is not None:
-                cols.append((fe_const_rows[j] @ cfe_j).expand(n))
+                lp = (fe_const_rows[j] @ cfe_j).expand(n)
             else:
-                cols.append(fe_blocks[j] @ cfe_j)
+                lp = fe_blocks[j] @ cfe_j
+            if ncol_re_per_param[j] > 0:
+                Xre = re_blocks[j]
+                if j in decay_cols:
+                    # out of place (torch.func has no in-place column set):
+                    # each decayed column scaled by exp(-rate * t_decay)
+                    rate = torch.exp(full["log_decay"])
+                    xcols = list(Xre.unbind(1))
+                    for local, rix in decay_cols[j]:
+                        xcols[local] = xcols[local] * torch.exp(
+                            -rate[rix] * t_decay_blocks[j])
+                    Xre = torch.stack(xcols, dim=1)
+                lp = lp + Xre @ cre[re_off[j] : re_off[j + 1]]
+            cols.append(lp)
         return torch.stack(cols, dim=1)
 
-    def joint_nllk(full):
-        sobs = torch.exp(full["log_sigma_obs"][0])
-        if spec.type == "CTCRW":
-            return -ctcrw_loglik_soa(
-                par_matrix(full), None, None, None, sigma_obs=sobs,
-                scan="fused", analytic_grad=True, data=data,
+    # ---- likelihood ----
+    if closed_form:
+        other = ({"df": float(other_data["df"])} if spec.type == "BM_t"
+                 else None)
+
+        def loglik(full):
+            return closed_form_loglik(spec.type, None, None, None,
+                                      par_matrix(full), other, data=data)
+    else:
+        def loglik(full):
+            sobs = torch.exp(full["log_sigma_obs"][0])
+            if spec.type == "CTCRW":
+                return ctcrw_loglik_soa(
+                    par_matrix(full), None, None, None, sigma_obs=sobs,
+                    scan="fused", analytic_grad=True, data=data,
+                )
+            return diag_ssm_loglik_fused(
+                spec.type, par_matrix(full), None, None, None,
+                sigma_obs=sobs, data=data,
             )
-        return -diag_ssm_loglik_fused(
-            spec.type, par_matrix(full), None, None, None, sigma_obs=sobs,
-            data=data,
-        )
+
+    # ---- penalty ----
+    penalty = make_penalty(design.S_groups, normalize=closed_form,
+                           dtype=dtype, device=device)
+
+    def joint_nllk(full):
+        val = -loglik(full)
+        if has_re:
+            val = val + penalty(full["coeff_re"], full["log_lambda"])
+        return val
+
+    def joint_nllk_unpenalized(full):
+        # include_penalty = 0: the closed-form dispatcher drops the
+        # penalty entirely (nllk_sde.hpp:91); what conditional AIC needs
+        return -loglik(full)
 
     return ObjectiveBundle(
         joint_nllk=joint_nllk,
+        joint_nllk_unpenalized=joint_nllk_unpenalized,
         packer=packer,
         par_matrix=par_matrix,
         n_obs=n,
         dtype=dtype,
         device=device,
+        kind=spec.kind,
     )

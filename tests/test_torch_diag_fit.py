@@ -7,7 +7,7 @@ the port on the CPU (plain versions of the kernels; BM_SSM centred on
 its observations, as the port's objective does). Optimum parameters
 within 1e-4 absolute, nllk within 1e-8 relative, `cov_fixed` within
 1e-3 relative, and `from_reference` reproduces the JAX `joint_nllk` at
-the JAX optimum to 1e-10. Types outside the slice still raise.
+the JAX optimum to 1e-10. Types and terms outside the slice still raise.
 """
 
 import warnings
@@ -93,7 +93,8 @@ def test_from_reference_reproduces_joint_nllk(fits):
 
 @pytest.mark.parametrize("typ,resp,kw", [
     ("ESEAL_SSM", "y1", {}),
-    ("BM", ["y1", "y2"], {}),
+    ("BM_SSM", ["y1", "y2"], {"formulas": {
+        "mu1": "~1", "mu2": "~1", "sigma": "~s(ID, bs='re')"}}),
     ("BM_SSM", ["y1", "y2"], {"other_data": {"P0": np.eye(2)}}),
     ("OU_SSM", ["y1", "y2"], {"other_data": {"H": np.eye(2)}}),
     ("OU_SSM", ["y1", "y2"], {"formulas": {

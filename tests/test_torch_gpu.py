@@ -1,7 +1,8 @@
 """CUDA kernels of smoothsde_tpu_torch against their plain PyTorch
 versions on the card: the CTCRW kernels (par-space and element-space),
 the cross-block prefix K2 alone, the phase-1 scan K8, the scalar-state
-(BM_SSM / OU_SSM) ones, and the launcher's argument checks. Every test that needs
+(BM_SSM / OU_SSM) ones, the launcher's argument checks, and the
+closed-form objective on the card against the CPU. Every test that needs
 the card is marked `gpu` and skips without a CUDA device. This file
 imports neither jax nor the JAX package, so it also runs where jax is
 not installed:
@@ -555,3 +556,51 @@ def test_kernels_refuse_autograd(cuda):
     for scan in ("fused", "pallas"):
         with pytest.raises(RuntimeError, match="forward-only"):
             ctcrw_loglik_soa(p, obs, times, ids, 0.2, scan=scan)
+
+
+def _closed_form_case(typ):
+    """SDE keyword arguments of a small closed-form model; OU carries a
+    smooth on mu (the Laplace approximation), BM_t its df."""
+    rng = np.random.default_rng(60)
+    n = 400
+    dt = rng.uniform(0.2, 0.6, size=n - 1)
+    times = np.concatenate([[0.0], np.cumsum(dt)])
+    if typ == "CIR":
+        z = 2.0 + np.cumsum(rng.normal(size=n) * 0.05)
+    else:
+        z = np.cumsum(rng.normal(size=n) * 0.3)
+    data = {"ID": (np.arange(n) >= 150).astype(int), "time": times, "z": z}
+    kw = {"data": data, "type": typ, "response": "z"}
+    if typ == "BM_t":
+        kw["other_data"] = {"df": 5.0}
+    if typ == "OU":
+        kw["formulas"] = {"mu": "~s(time, k=5, bs='cs')", "tau": "~1",
+                          "kappa": "~1"}
+    return kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("typ", ["BM", "BM_t", "OU", "CIR"])
+def test_closed_form_on_card_matches_cpu_f64(cuda, typ):
+    """The closed-form objective (plain torch ops, no kernel) on the card
+    against the same model on the CPU, f64, at the start point: the
+    Laplace marginal (joint nllk without inner coefficients) to 1e-10
+    relative, its gradient and bhat to 1e-8 of their scale; the model's
+    tensors stay on the card."""
+    from smoothsde_tpu_torch import SDE
+    from smoothsde_tpu_torch.infer.fit import make_val_grad
+
+    kw = _closed_form_case(typ)
+    gpu = SDE(**kw, device="cuda", dtype=torch.float64).bundle()
+    cpu = SDE(**kw, device="cpu", dtype=torch.float64).bundle()
+    x = gpu.packer.outer_init()
+    full = gpu.packer.unpack(torch.tensor(x, device=cuda))
+    assert all(v.is_cuda for v in full.values())
+    assert gpu.par_matrix(full).is_cuda
+    v, g, b = make_val_grad(gpu)(x)
+    rv, rg, rb = make_val_grad(cpu)(x)
+    assert np.isfinite(v) and v == pytest.approx(rv, rel=1e-10)
+    np.testing.assert_allclose(g, rg, rtol=0,
+                               atol=1e-8 * max(1.0, np.max(np.abs(rg))))
+    assert len(b) == gpu.packer.n_inner == (4 if typ == "OU" else 0)
+    np.testing.assert_allclose(b, rb, rtol=0, atol=1e-8)

@@ -96,7 +96,7 @@ def test_from_reference_reproduces_joint_nllk(fits):
 def test_outside_the_slice_raises():
     data = _simulate(n_per=(30,))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SDE(data=data, type="BM", response="y1", device="cpu")
+        SDE(data=data, type="ESEAL_SSM", response="y1", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         SDE(formulas={"mu1": "~1", "mu2": "~1", "tau": "~s(x, k=5)",
                       "nu": "~1"},
