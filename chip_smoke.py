@@ -347,6 +347,63 @@ def config2(n=3000):
             {"tau": 2.0})
 
 
+def config4(n_id=8, n_per=250):
+    """Multi-animal CTCRW with an individual random effect on tau
+    (tools/bench_configs.py `config4`, :97-136): 8 tracks of 250 fixes,
+    2-D, track k's tau = 3 exp(0.3 z_k), nu = 1, dt ~ U(0.3, 0.8),
+    sigma_obs = 0.1, seed 3; `tau ~ s(ID, bs='re')`."""
+    from smoothsde_tpu_torch.utils.misc import ctcrw_cov
+
+    rng = np.random.default_rng(3)
+    rows = {"ID": [], "time": [], "y1": [], "y2": []}
+    for k in range(n_id):
+        tau_k = 3.0 * np.exp(rng.normal() * 0.3)
+        beta = 1 / tau_k
+        sigma = 2 / np.sqrt(np.pi * tau_k)
+        times = np.cumsum(rng.uniform(0.3, 0.8, size=n_per))
+        v, z = np.zeros(2), np.zeros(2)
+        obs = np.empty((n_per, 2))
+        obs[0] = 0
+        for i in range(1, n_per):
+            dt = times[i] - times[i - 1]
+            e = np.exp(-beta * dt)
+            V = ctcrw_cov(beta, sigma, dt)
+            for d in range(2):
+                mv, mz = e * v[d], z[d] + v[d] / beta * (1 - e)
+                v[d], z[d] = rng.multivariate_normal([mv, mz], V)
+            obs[i] = z + rng.normal(size=2) * 0.1
+        rows["ID"].extend([f"a{k}"] * n_per)
+        rows["time"].extend(times.tolist())
+        rows["y1"].extend(obs[:, 0].tolist())
+        rows["y2"].extend(obs[:, 1].tolist())
+    data = {k: np.asarray(v) for k, v in rows.items()}
+    return (dict(formulas={"mu1": "~1", "mu2": "~1",
+                           "tau": "~s(ID, bs='re')", "nu": "~1"},
+                 data=data, type="CTCRW", response=["y1", "y2"],
+                 par0=[0.0, 0.0, 2.0, 0.8]),
+            {"tau_pop": 3.0})
+
+
+def multi_animal_bm(K=40, n_per=30, seed=9):
+    """tests/test_coloring.py `_multi_animal_data`: K BM tracks, track
+    k's sigma = 0.8 exp(0.3 z_k), dt ~ U(0.3, 0.8), and a uniform
+    covariate x."""
+    rng = np.random.default_rng(seed)
+    rows = {"ID": [], "time": [], "z": [], "x": []}
+    for k in range(K):
+        sig_k = 0.8 * np.exp(rng.normal() * 0.3)
+        t = np.cumsum(rng.uniform(0.3, 0.8, n_per))
+        z = np.concatenate(
+            [[0.0], np.cumsum(sig_k * np.sqrt(np.diff(t))
+                              * rng.normal(size=n_per - 1))]
+        )
+        rows["ID"].extend([f"a{k:03d}"] * n_per)
+        rows["time"].extend(t.tolist())
+        rows["z"].extend(z.tolist())
+        rows["x"].extend(rng.uniform(0, 1, n_per).tolist())
+    return {k: np.asarray(v) for k, v in rows.items()}
+
+
 def config5b(n=1_000_000):
     """The 1M-step CIR of BASELINE config 5 (part 2): exact
     noncentral-chi^2 transitions, dt = 0.1, mu = 2, beta = 0.8,
@@ -578,6 +635,42 @@ def flat(out, torch):
     if isinstance(out, tuple):
         return torch.cat([o.reshape(-1) for o in out])
     return out.reshape(-1)
+
+
+def ctcrw_kernel_calls(torch, bun, dat, x, inner=None):
+    """The six CTCRW kernels' calls on the stack that bundle `bun` builds
+    from `dat` (prepare_ctcrw_data) at outer x and inner coefficients
+    `inner` (their initial values if None): (plan, {name: fn(op table)}).
+    Each input comes from the kernels' own upstream outputs, as on the
+    fit's path. Call under torch.no_grad()."""
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+
+    ops_k = cf.OPS["kernels"]
+    as_t = partial(torch.tensor, dtype=bun.dtype, device=bun.device)
+    full = bun.packer.unpack(as_t(x), None if inner is None else as_t(inner))
+    pm = bun.par_matrix(full)
+    h1 = (torch.exp(full["log_sigma_obs"][0]) ** 2).reshape(1)
+    p = cf.plan(2, pm.shape[0])
+    stack, bd = cf.par_stack_from_data(pm, dat.yd, dat.dtv, dat.resetf,
+                                       dat.validf, p)
+    tot = ops_k.filter_totals(stack, bd, h1, P0_POS, P0_VEL)
+    pre = ops_k.block_prefix(tot, 2, "filter", False)
+    mom, _ = ops_k.filter_scan(stack, bd, pre, h1, P0_POS, P0_VEL)
+    stot = ops_k.smooth_totals(stack, mom)
+    suf = ops_k.block_prefix(stot, 2, "smooth", True)
+    return p, {
+        "ctcrw_filter_totals": lambda o: o.filter_totals(
+            stack, bd, h1, P0_POS, P0_VEL),
+        "block_prefix_filter": lambda o: o.block_prefix(
+            tot, 2, "filter", False),
+        "ctcrw_filter_scan": lambda o: o.filter_scan(
+            stack, bd, pre, h1, P0_POS, P0_VEL),
+        "ctcrw_smooth_totals": lambda o: o.smooth_totals(stack, mom),
+        "block_prefix_smooth": lambda o: o.block_prefix(
+            stot, 2, "smooth", True),
+        "ctcrw_score_scan": lambda o: o.score_scan(
+            stack, mom, suf, h1, P0_POS),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -958,10 +1051,9 @@ def phase_audit(torch):
     return out
 
 
-def closed_form_fit(torch, label, kw, dtype):
-    """Fit a closed-form model with `SDE(**kw, device="cuda",
-    dtype=dtype).fit()`; no exception is caught. Returns (sde, result,
-    wall s)."""
+def fit_on_card(torch, label, kw, dtype):
+    """Fit a model with `SDE(**kw, device="cuda", dtype=dtype).fit()`;
+    no exception is caught. Returns (sde, result, wall s)."""
     from smoothsde_tpu_torch import SDE
 
     t = time.time()
@@ -982,8 +1074,8 @@ def phase_config1(torch):
     to 5%: its standard error is ~9%), the f32 estimates within 1e-3 of
     the f64 fit's."""
     kw, truth = config1()
-    sde, res, wall = closed_form_fit(torch, "3f", kw, torch.float32)
-    _, res64, wall64 = closed_form_fit(torch, "3f", kw, torch.float64)
+    sde, res, wall = fit_on_card(torch, "3f", kw, torch.float32)
+    _, res64, wall64 = fit_on_card(torch, "3f", kw, torch.float64)
     mu, sigma = (float(v) for v in sde.par(t=0)[0])
     dpar = float(np.max(np.abs(res.par - res64.par)))
     check(res.convergence == 0 and res64.convergence == 0,
@@ -1006,8 +1098,8 @@ def phase_config2(torch):
     Gates: convergence, tau within 5% of 2.0, the f32 nllk within 1e-4
     relative of the f64 fit's, bhat and cov_fixed finite."""
     kw, truth = config2()
-    sde, res, wall = closed_form_fit(torch, "3g", kw, torch.float32)
-    _, res64, wall64 = closed_form_fit(torch, "3g", kw, torch.float64)
+    sde, res, wall = fit_on_card(torch, "3g", kw, torch.float32)
+    _, res64, wall64 = fit_on_card(torch, "3g", kw, torch.float64)
     tau = float(sde.par(t=0)[0, 1])
     ev = abs(res.value - res64.value) / abs(res64.value)
     check(res.convergence == 0, f"3g: OU fit did not converge: {res.message}")
@@ -1043,7 +1135,7 @@ def phase_config5b(torch, card):
     kw, truth = config5b()
     log(f"[3h] simulated in {time.time() - t:.1f} s")
     torch.cuda.reset_peak_memory_stats()
-    sde, res, wall = closed_form_fit(torch, "3h", kw, torch.float32)
+    sde, res, wall = fit_on_card(torch, "3h", kw, torch.float32)
     fit_peak = torch.cuda.max_memory_allocated()
     est = dict(zip(truth, (float(v) for v in sde.par(t=0)[0])))
     check(res.convergence == 0, f"3h: CIR fit did not converge: {res.message}")
@@ -1091,6 +1183,253 @@ def phase_config5b(torch, card):
            "peak_memory_bytes_fit": fit_peak,
            "accuracy_f32_vs_f64": accuracy}
     log(f"[3h] {json.dumps(out)}")
+    return out
+
+
+def marginal_timing(torch, bundle, vg, x, b0, reps, stats):
+    """One Laplace marginal evaluation (value, gradient, bhat) of the
+    `make_val_grad(bundle)` function vg at (x, b0): host wall s per
+    evaluation (median of `reps`, after one warm-up), and into `stats`
+    the profiler's device busy and wall ms and device operations per
+    evaluation (one call) and the twin's graphs' status."""
+    wall = wall_ms(lambda: vg(x, b0), reps, 1)["median"] / 1e3
+    _, busy, prof_wall = profile_device_ms(lambda: vg(x, b0), 1, torch,
+                                           stats)
+    stats.update(busy_ms=busy, wall_ms=prof_wall,
+                 idle_share=1.0 - busy / prof_wall,
+                 graphs={k: g.status
+                         for k, g in bundle.marginal.graphs.items()})
+    return wall
+
+
+def phase_config4(torch, card):
+    """Phase 3i: config 4 (8 x 250-step CTCRW, tau ~ s(ID, bs='re'))
+    fitted in f32 and f64 on the card with the sdreport: the value term
+    and outer gradient on K1a, K1b, K2 and K3a / K3b, every second-order
+    quantity on the forward-mode twin (no kernel). Gates: convergence;
+    f32 against f64: marginal nllk within 1e-4 relative, and the outer
+    estimates apart by at most 0.1 f64 standard errors, the log smoothing
+    parameter by at most 1 (the measured spread, PERF.md §6: <= 0.05 and
+    0.42; the smoothing parameter's direction is flat, and at the
+    reference's f32 gtol the f32 fit stops 0.1-0.3 from the f64 fit in
+    log lambda); the f64 marginal value and gradient at
+    tests/golden/config4.npz's frozen point within test_golden.py's bars
+    (value 1e-7 (1 + |v|), gradient rtol 1e-6, atol 1e-7); the joint
+    precision finite and symmetric, its inner block positive definite;
+    each of the twin's quantities a CUDA graph in both fits (no capture
+    fell back to eager); each CTCRW kernel against its plain version on
+    config 4's own stack (8 resets, 63 lanes) at each fit's optimum and
+    bhat, at phase 4's bar in f64 (1e-8 of the scale) and in f32 at 1e-3
+    of the scale (phase 4 records K3b's f32 outputs 5.2e-4 of the scale
+    off at 5a: PERF.md §6). Printed: fit walls and evaluations, s per
+    marginal evaluation, the kernels' launches per marginal evaluation
+    and errors against their plain versions, device operations and busy
+    / idle share per marginal evaluation, peak memory (smoothsde_tpu_torch/
+    twin_bench.py times the twin's forms)."""
+    from smoothsde_tpu_torch.infer.fit import make_val_grad
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+    from smoothsde_tpu_torch.ops.kalman_soa import prepare_ctcrw_data
+
+    kw, truth = config4()
+    cf.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    sde, res, wall = fit_on_card(torch, "3i", kw, torch.float32)
+    fit_peak = torch.cuda.max_memory_allocated()
+    fit_launches = {k: v for k, v in cf.LAUNCHES.items() if v}
+    sde64, res64, wall64 = fit_on_card(torch, "3i", kw, torch.float64)
+    b32, b64 = sde.bundle(), sde64.bundle()
+    n_out = b32.packer.n_outer
+    ev = abs(res.value - res64.value) / abs(res64.value)
+    dpar = float(np.max(np.abs(res.par - res64.par)))
+    check(res.convergence == 0 and res64.convergence == 0,
+          f"3i: config 4 did not converge: {res.message} / {res64.message}")
+    check(ev <= 1e-4, f"3i: f32 marginal nllk {res.value} vs f64 "
+          f"{res64.value}: rel {ev:.3e}")
+    se64 = np.sqrt(np.diag(res64.cov_fixed))
+    dse = (res.par - res64.par) / se64
+    smoothing = np.array([nm.startswith("log_lambda")
+                          for nm in b64.packer.outer_names()])
+    check(np.all(np.isfinite(dse))
+          and float(np.max(np.abs(dse[~smoothing]))) <= 0.1
+          and float(np.max(np.abs(dse[smoothing]))) <= 1.0,
+          f"3i: f32 estimates {res.par.tolist()} vs f64 "
+          f"{res64.par.tolist()}: {dse.tolist()} f64 standard errors")
+    for tag, b in (("f32", b32), ("f64", b64)):
+        status = {k: g.status for k, g in b.marginal.graphs.items()}
+        check(all(list(st.values()) == ["graph"] for st in status.values()),
+              f"3i: {tag} twin quantities not all CUDA graphs: {status}")
+    for tag, r in (("f32", res), ("f64", res64)):
+        Q = r.joint_precision
+        check(Q is not None and np.all(np.isfinite(Q))
+              and np.array_equal(Q, Q.T),
+              f"3i: {tag} joint precision not finite and symmetric")
+        lo = float(np.linalg.eigvalsh(Q[n_out:, n_out:]).min())
+        check(lo > 0, f"3i: {tag} joint precision's inner block not "
+              f"positive definite (least eigenvalue {lo:.3e})")
+
+    fx = np.load(os.path.join(HERE, "tests", "golden", "config4.npz"))
+    vg64 = make_val_grad(b64)
+    gv, gg, _ = vg64(fx["outer"])
+    want_v, want_g = float(fx["marginal_nllk"]), fx["marginal_grad"]
+    golden = {"marginal_nllk": gv, "want": want_v,
+              "abs_err": abs(gv - want_v),
+              "grad_max_abs_err": float(np.max(np.abs(gg - want_g)))}
+    check(abs(gv - want_v) < 1e-7 * (1 + abs(want_v)),
+          f"3i: f64 marginal at the golden point {gv} vs {want_v}")
+    check(np.allclose(gg, want_g, rtol=1e-6, atol=1e-7),
+          f"3i: f64 marginal gradient at the golden point {gg.tolist()} vs "
+          f"{want_g.tolist()}")
+
+    x, bh = res.par, res.bhat
+    vg32 = make_val_grad(b32)  # the fit's marginal, graphs captured
+    cf.reset_launches()
+    vg32(x, bh)
+    per_eval = {k: v for k, v in cf.LAUNCHES.items() if v}
+    for name in ("ctcrw_filter_totals", "ctcrw_filter_scan",
+                 "block_prefix_filter", "ctcrw_smooth_totals",
+                 "block_prefix_smooth", "ctcrw_score_scan"):
+        check(per_eval.get(name, 0) > 0,
+              f"3i: {name} not launched by a marginal evaluation")
+    torch.cuda.reset_peak_memory_stats()
+    vg32(x, bh)
+    eval_peak = torch.cuda.max_memory_allocated()
+    stats = {}
+    s_eval = marginal_timing(torch, b32, vg32, x, bh, 3, stats)
+
+    ops_k, ops_p = cf.OPS["kernels"], cf.OPS["plain"]
+    kchecks = {}
+    for tag, s_, r_, bun in (("", sde64, res64, b64), ("_f32", sde, res, b32)):
+        dat = prepare_ctcrw_data(s_.obs(), kw["data"]["time"],
+                                 kw["data"]["ID"], dtype=bun.dtype,
+                                 device=bun.device)
+        with torch.no_grad():
+            p, calls = ctcrw_kernel_calls(torch, bun, dat, r_.par, r_.bhat)
+            for name, fn in calls.items():
+                got, ref = flat(fn(ops_k), torch), flat(fn(ops_p), torch)
+                err = float((got - ref).abs().max())
+                scale = max(1.0, float(ref.abs().max()))
+                bar = 1e-3 if tag else 1e-8
+                check(bool(torch.isfinite(got).all()) and err <= bar * scale,
+                      f"3i: {name}{tag} kernel vs plain at config 4: max abs "
+                      f"err {err:.3e}, scale {scale:.3e}")
+                kchecks.setdefault(name, {
+                    "shape_config4": f"n={p.n} d=2 lanes={p.lanes} L={p.L}"})
+                kchecks[name].update({
+                    f"max_abs_err{tag}_config4": err,
+                    f"max_rel_err{tag}_config4": err / scale})
+
+    out = {"card": card, "n": len(kw["data"]["ID"]), "twin": b32.twin,
+           "fit_wall_s": wall, "fit_evals": res.counts["evals"],
+           "via": res.convergence_via, "timings_s": res.timings,
+           "f64_fit_wall_s": wall64, "f64_evals": res64.counts["evals"],
+           "s_per_marginal_eval_fit": wall / res.counts["evals"],
+           "s_per_marginal_eval_optimum": s_eval,
+           "par": res.par.tolist(), "par_f64": res64.par.tolist(),
+           "nllk": res.value, "nllk_f64": res64.value, "nllk_rel": ev,
+           "par_f32_minus_f64_max_abs": dpar,
+           "par_f32_minus_f64_over_se64": dse.tolist(),
+           "tau_per_track": sde.par(t="all")[::250, 2].tolist(),
+           "truth": truth, "lambda": sde.lambda_().tolist(),
+           "golden_f64": golden,
+           "launches_fit": fit_launches,
+           "launches_per_marginal_eval": per_eval,
+           "kernel_checks": kchecks,
+           "profile_per_marginal_eval": stats,
+           "peak_memory_bytes_fit": fit_peak,
+           "peak_memory_bytes_marginal_eval": eval_peak}
+    log(f"[3i] {json.dumps(out)}")
+    return out
+
+
+def phase_twin_1m(torch, card, cases):
+    """Phase 3j: the forward-mode twin's long branch (the SoA filter's
+    plain "blocked" scan, TWIN_SOA_MIN_STEPS steps and up) against the
+    kernel route at 1M steps, at each case's start and its f32 optimum;
+    the twin launches no kernel. f64: value within 1e-10 relative,
+    gradient within 1e-8 of its largest component (the card test's bars
+    at 200k). f32, against the f64 kernel route: value within 1e-4
+    relative; at the start (gradient components ~1e4-1e6) the gradient
+    within 1e-3 of its largest component. At the f32 optimum the f32
+    gradient is rounding noise of the 1M-step sums (both routes ~10-30
+    from f64's; PERF.md §6), so there its errors are printed, not gated.
+    Each route's f32 nllk+grad wall ms and the twin's peak memory."""
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+
+    def value_grad(bundle, fn, x):
+        xt = torch.tensor(x, dtype=bundle.dtype, device=bundle.device,
+                          requires_grad=True)
+        v = fn(bundle.packer.unpack(xt))
+        (g,) = torch.autograd.grad(v, xt)
+        return float(v.detach()), g.double().cpu().numpy()
+
+    out = {"card": card}
+    for label, b32, b64, x_opt in cases:
+        res = out[label] = {}
+        for where, x in (("start", b32.packer.outer_init()),
+                         ("optimum", x_opt)):
+            r = {}
+            for tag, b in (("f64", b64), ("f32", b32)):
+                check(b.twin == "blocked", f"3j: {label} twin {b.twin}")
+                cf.reset_launches()
+                r[f"twin_{tag}"] = value_grad(b, b.joint_nllk_ad, x)
+                check(not any(cf.LAUNCHES.values()),
+                      f"3j: the {label} twin launched {cf.LAUNCHES}")
+                r[f"kernels_{tag}"] = value_grad(b, b.joint_nllk, x)
+            kv, kg = r["kernels_f64"]
+            gscale = float(np.max(np.abs(kg)))
+            err = {}
+            for key in ("twin_f64", "twin_f32", "kernels_f32"):
+                v, g = r[key]
+                err[key] = {"nllk_rel": abs(v - kv) / abs(kv),
+                            "grad_err_over_max": float(
+                                np.max(np.abs(g - kg))) / gscale}
+            res[where] = {"nllk_f64": kv, "grad_f64": kg.tolist(),
+                          **{k: (v, g.tolist()) for k, (v, g) in r.items()
+                             if k != "kernels_f64"},
+                          "vs_f64_kernels": err}
+            e = err["twin_f64"]
+            check(e["nllk_rel"] <= 1e-10 and e["grad_err_over_max"] <= 1e-8,
+                  f"3j: {label} f64 twin vs kernels at the {where}: {e}")
+            e = err["twin_f32"]
+            check(e["nllk_rel"] <= 1e-4, f"3j: {label} f32 twin nllk at the "
+                  f"{where}: rel {e['nllk_rel']:.3e}")
+            if where == "start":
+                check(e["grad_err_over_max"] <= 1e-3,
+                      f"3j: {label} f32 twin gradient at the start: "
+                      f"{e['grad_err_over_max']:.3e} of its largest "
+                      f"component")
+        torch.cuda.reset_peak_memory_stats()
+        value_grad(b32, b32.joint_nllk_ad, x_opt)
+        res["twin_peak_memory_bytes_f32"] = torch.cuda.max_memory_allocated()
+        res["twin_ms"] = wall_ms(
+            lambda: value_grad(b32, b32.joint_nllk_ad, x_opt), 5, 1)
+        res["kernels_ms"] = wall_ms(
+            lambda: value_grad(b32, b32.joint_nllk, x_opt), 20, 2)
+    log(f"[3j] {json.dumps(out)}")
+    return out
+
+
+def phase_colored(torch, card):
+    """Phase 3k: the wide-random-effect BM fit of tests/test_coloring.py
+    (40 animals x 30, seed 9, sigma ~ s(ID, bs='re')) on the card in f32
+    through the colored inner Hessian. Gates: one color, convergence,
+    median sigma within 0.25 of 0.8."""
+    kw = dict(data=multi_animal_bm(), type="BM", response="z",
+              formulas={"mu": "~1", "sigma": "~s(ID, bs='re')"},
+              par0=[0.0, 1.0])
+    sde, res, wall = fit_on_card(torch, "3k", kw, torch.float32)
+    plan = sde.bundle().hess_plan
+    med = float(np.median(sde.par(t="all")[:, 1]))
+    check(plan is not None and plan["n_colors"] == 1,
+          f"3k: colored plan {None if plan is None else plan['n_colors']}")
+    check(res.convergence == 0, f"3k: BM fit did not converge: "
+          f"{res.message}")
+    check(abs(med - 0.8) < 0.25, f"3k: median sigma {med}")
+    out = {"card": card, "n_colors": plan["n_colors"], "p_re": plan["p"],
+           "fit_wall_s": wall, "evals": res.counts["evals"],
+           "via": res.convergence_via, "median_sigma": med,
+           "nllk": res.value}
+    log(f"[3k] {json.dumps(out)}")
     return out
 
 
@@ -1604,6 +1943,16 @@ def main():
     closed["config2_ou_smooth"] = phase_config2(torch)
     log("[3h] config 5b: 1M-step CIR fit on the card, f32")
     closed["config5b_cir"] = phase_config5b(torch, card)
+    log("[3i] config 4: 8 x 250-step CTCRW with tau ~ s(ID, bs='re'), the "
+        "state-space Laplace layer on the card, f32 and f64")
+    c4 = phase_config4(torch, card)
+    log("[3j] the forward-mode twin at 1M steps (CTCRW 5a, OU_SSM 3b) "
+        "against the kernel route, f32")
+    twin = phase_twin_1m(torch, card, [
+        ("CTCRW_5a", b32, b64, res.par),
+        ("OU_SSM_3b", ou["b32"], ou["b64"], ou["res"].par)])
+    log("[3k] the colored inner Hessian: the wide-random-effect BM fit")
+    colored = phase_colored(torch, card)
 
     log("[4] kernels vs plain at the fit's shapes, and times")
     ops_k, ops_p = cf.OPS["kernels"], cf.OPS["plain"]
@@ -1612,31 +1961,7 @@ def main():
     for dtype, dat, bun in ((torch.float64, d64, b64),
                             (torch.float32, d32, b32)):
         with torch.no_grad():
-            xt = torch.tensor(x_hat, dtype=dtype, device=dev)
-            full = bun.packer.unpack(xt)
-            pm = bun.par_matrix(full)
-            h1 = (torch.exp(full["log_sigma_obs"][0]) ** 2).reshape(1)
-            p = cf.plan(2, pm.shape[0])
-            stack, bd = cf.par_stack_from_data(pm, dat.yd, dat.dtv,
-                                               dat.resetf, dat.validf, p)
-            tot = ops_k.filter_totals(stack, bd, h1, P0_POS, P0_VEL)
-            pre = ops_k.block_prefix(tot, 2, "filter", False)
-            mom, _ = ops_k.filter_scan(stack, bd, pre, h1, P0_POS, P0_VEL)
-            stot = ops_k.smooth_totals(stack, mom)
-            suf = ops_k.block_prefix(stot, 2, "smooth", True)
-            calls = {
-                "ctcrw_filter_totals": lambda o: o.filter_totals(
-                    stack, bd, h1, P0_POS, P0_VEL),
-                "block_prefix_filter": lambda o: o.block_prefix(
-                    tot, 2, "filter", False),
-                "ctcrw_filter_scan": lambda o: o.filter_scan(
-                    stack, bd, pre, h1, P0_POS, P0_VEL),
-                "ctcrw_smooth_totals": lambda o: o.smooth_totals(stack, mom),
-                "block_prefix_smooth": lambda o: o.block_prefix(
-                    stot, 2, "smooth", True),
-                "ctcrw_score_scan": lambda o: o.score_scan(
-                    stack, mom, suf, h1, P0_POS),
-            }
+            p, calls = ctcrw_kernel_calls(torch, bun, dat, x_hat)
             for name, source, replaces in CTCRW_KERNELS:
                 fn = calls[name]
                 got, ref = flat(fn(ops_k), torch), flat(fn(ops_p), torch)
@@ -1660,6 +1985,10 @@ def main():
                     e["shape"] = f"n=1000000 d=2 lanes={p.lanes} L={p.L} f32"
                     e.update(bound(name, p, 4))
     kernels = [entries[name] for name, _, _ in CTCRW_KERNELS]
+    for e in kernels:
+        e["launches_config4_per_marginal_eval"] = \
+            c4["launches_per_marginal_eval"].get(e["name"], 0)
+        e.update(c4["kernel_checks"][e["name"]])
     for e in kernels:
         log(f"  {e['name']}: {e['ms']:.4f} ms (plain {e['plain_ms']:.2f} ms),"
             f" f64 max abs err {e['max_abs_err']:.2e}")
@@ -1732,6 +2061,9 @@ def main():
     fit_line["kernel_checks_diag_alone"] = kd
     fit_line["accuracy_audit_point"] = audit
     fit_line["closed_form"] = closed
+    fit_line["config4_ssm_laplace"] = c4
+    fit_line["twin_1m"] = twin
+    fit_line["colored_hessian_fit"] = colored
     for fit, times in ((ou, ou_times), (bm, bm_times)):
         fit_line[fit["typ"]] = {"fit": fit["summary"], **times}
     log("SUMMARY " + json.dumps(fit_line))

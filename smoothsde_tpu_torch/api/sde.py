@@ -3,11 +3,13 @@
 Port of smoothsde_tpu/api/sde.py for the ported slice: construction
 from formulas + data, fitting by marginal maximum likelihood (host BFGS),
 the outer covariance `cov_fixed`, parameter evaluation with inverse
-links, and the smoothed states of a fitted CTCRW. The closed-form models
-(BM, BM_t, OU, CIR) take smooths and random effects, integrated out by
-the Laplace approximation (infer/laplace.py), decay-modulated splines
-and REML; the state-space models (CTCRW, BM_SSM, OU_SSM) run on the
-hand-written kernels with intercepts and linear/factor terms.
+links, and the smoothed states of a fitted CTCRW. Every ported type
+takes smooths and random effects, integrated out by the Laplace
+approximation (infer/laplace.py), and REML; the closed-form models (BM,
+BM_t, OU, CIR) also decay-modulated splines. The state-space models
+(CTCRW, BM_SSM, OU_SSM) run their likelihood on the hand-written
+kernels and the Laplace layer's second-order quantities on a
+forward-mode twin (infer/objective.py `loglik_ad`).
 
 The device and the working type are explicit: `device="cuda"` (the
 default) runs the hand-written CUDA kernels, `device="cpu"` their plain
@@ -35,9 +37,9 @@ class SDE:
 
     Args:
       formulas: dict mapping SDE parameter names to formula strings, in
-        the model's parameter order: intercepts and linear/factor terms;
-        for the closed-form types also smooths `s(...)` and random
-        effects `s(ID, bs='re')`. None = intercept-only for all.
+        the model's parameter order: intercepts, linear/factor terms,
+        smooths `s(...)` and random effects `s(ID, bs='re')`. None =
+        intercept-only for all.
       data: pandas DataFrame or dict of columns with a "time" column, the
         response column(s), covariates, and optionally "ID" (tracks).
       type: model type; the port runs the closed-form "BM" (parameters
@@ -90,7 +92,7 @@ class SDE:
                 raise ValueError("'response' not found in 'data'")
 
         self._spec = get_model_spec(type, len(responses))
-        check_slice(self._spec, other_data=other_data)
+        check_slice(self._spec, other_data)
         param_names = list(self._spec.param_names)
 
         if formulas is None:
@@ -130,7 +132,6 @@ class SDE:
 
         self._knots = dict(knots or {})
         self._design = build_design(self._formulas, cdata, knots=self._knots)
-        check_slice(self._spec, self._design, other_data)
         ncol_fe = list(self._design.ncol_fe)
         self._coeff_fe = np.zeros(sum(ncol_fe))
         self._coeff_re = np.zeros(sum(self._design.ncol_re))
@@ -262,7 +263,7 @@ class SDE:
         `criterion`: "ML" (the reference's criterion) or "REML": the
         fixed-effect coefficients are integrated out alongside the smooth
         coefficients (TMB's random=c("coeff_fe", "coeff_re") REML
-        construction; closed-form models only in the port)."""
+        construction)."""
         from smoothsde_tpu_torch.infer.fit import fit_model
         from smoothsde_tpu_torch.infer.objective import unported
 

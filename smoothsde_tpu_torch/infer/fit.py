@@ -14,7 +14,9 @@ joint precision over (outer, inner) is assembled as
     Q = [[H_marg + J_tb J_bb^-1 J_bt,  J_tb],
          [J_bt,                        J_bb]]
 
-from the Hessian J of the joint nllk (torch.func.hessian), whose Schur
+from the Hessian J of the joint nllk's forward-mode-capable twin
+(`joint_nllk_ad_flat`: torch.func.hessian cannot run through the
+state-space kernels' reverse-only autograd.Functions), whose Schur
 complement reproduces Cov(theta) = H_marg^-1 and whose conditional
 b|theta precision is the joint curvature J_bb.
 """
@@ -60,9 +62,15 @@ def make_val_grad(bundle):
     (the inner initial values when None), evaluated on the bundle's
     device and dtype (x is rounded to the working dtype first, as the
     JAX package's f32 path does). Without inner coefficients the value
-    is the joint nllk and bhat is empty."""
+    is the joint nllk and bhat is empty. The Laplace marginal is made
+    once per bundle (`bundle.marginal`), so every evaluation of the
+    bundle replays the same captured CUDA graphs."""
     packer = bundle.packer
-    marginal = make_laplace(bundle.joint_nllk, packer)
+    if bundle.marginal is None:  # one per bundle: its CUDA graphs too
+        bundle.marginal = make_laplace(bundle.joint_nllk, packer,
+                                       joint_nllk_ad=bundle.joint_nllk_ad,
+                                       hess_plan=bundle.hess_plan)
+    marginal = bundle.marginal
     b_init = packer.inner_init()
 
     def val_grad(x, b0=None):
@@ -262,7 +270,7 @@ def _sdreport(out, bundle, val_grad, fd_step):
         return
 
     def joint_vec(z):
-        return bundle.joint_nllk(packer.unpack(z[:n_out], z[n_out:]))
+        return bundle.joint_nllk_ad_flat(packer.unpack(z[:n_out], z[n_out:]))
 
     z_hat = torch.tensor(np.concatenate([x_hat, b_hat]), dtype=bundle.dtype,
                          device=bundle.device)

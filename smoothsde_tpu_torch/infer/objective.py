@@ -16,10 +16,19 @@ columns optionally decay-modulated), and loglik one of:
     ops/kalman_soa.ctcrw_loglik_soa (scan="fused", analytic_grad=True),
     BM_SSM / OU_SSM through ops/diag_fused.diag_ssm_loglik_fused
     (objective.py:556-571). Their gradients are reverse-only
-    autograd.Functions, so these models take no inner coefficients yet.
+    autograd.Functions, so each also has `loglik_ad`, a mathematically
+    identical twin in plain tensor arithmetic (objective.py:584-630)
+    that carries every second-order quantity of the Laplace layer
+    (`joint_nllk_ad`) and the joint precision (`joint_nllk_ad_flat`).
+    The twin reaches no kernel. Its route (`twin_route`, a function of
+    the device and n): on the CPU the per-dim sequential filter batched
+    by track (ops/kalman.py, the JAX package's CPU route); on a CUDA
+    device the SoA filter with a plain scan, "blocked" from
+    TWIN_SOA_MIN_STEPS steps and "associative" below (PERF.md §5).
 
-Everything outside this (a state-space model with smooths, random
-effects or REML; user H or P0; ESEAL_SSM; a mesh) raises
+With random effects and no REML or pinned entries, p_re >= 16 inner
+coefficients get a colored Hessian plan (infer/coloring.py). Everything
+outside this (user H or P0; ESEAL_SSM; a mesh) raises
 NotImplementedError naming its ROADMAP.md item.
 """
 
@@ -33,6 +42,10 @@ import torch
 
 from smoothsde_tpu_torch.infer.params import ParamBlock, ParamPacker
 from smoothsde_tpu_torch.models.registry import ModelSpec
+from smoothsde_tpu_torch.models.ssm import (
+    ctcrw_steps_perdim,
+    diag_ssm_steps_perdim,
+)
 from smoothsde_tpu_torch.ops.densities import (
     closed_form_loglik,
     prepare_closed_form_data,
@@ -41,8 +54,14 @@ from smoothsde_tpu_torch.ops.diag_fused import (
     diag_ssm_loglik_fused,
     prepare_diag_data,
 )
+from smoothsde_tpu_torch.ops.kalman import (
+    batch_steps_by_track,
+    kalman_loglik_batched,
+    track_pad_plan,
+)
 from smoothsde_tpu_torch.ops.kalman_soa import (
     ctcrw_loglik_soa,
+    diag_ssm_loglik_soa,
     precompute_dt,
     prepare_ctcrw_data,
 )
@@ -53,9 +72,6 @@ SSM_TYPES = ("CTCRW", "BM_SSM", "OU_SSM")
 PORTED_TYPES = CLOSED_FORM_TYPES + SSM_TYPES
 
 _ROADMAP = {
-    "ssm_inner": "queue 1 item 2 (the state-space half: the forward-mode "
-                 "twin of the Kalman likelihood for smooths, random effects "
-                 "and REML)",
     "generic": "queue 1 item 5 (generic and special filters: user H/P0, "
                "ESEAL_SSM)",
     "sharding": "queue 1 item 6 (sharding)",
@@ -69,8 +85,7 @@ def unported(what: str, item: str):
     )
 
 
-def check_slice(spec: ModelSpec, design=None, other_data=None,
-                reml: bool = False):
+def check_slice(spec: ModelSpec, other_data=None):
     """Raise NotImplementedError for anything outside the ported slice."""
     if spec.type not in PORTED_TYPES:
         raise unported(f"model type {spec.type!r}", "generic")
@@ -80,11 +95,21 @@ def check_slice(spec: ModelSpec, design=None, other_data=None,
     for key in ("H", "P0"):
         if other_data.get(key) is not None:
             raise unported(f"other_data[{key!r}]", "generic")
-    if design is not None and sum(design.ncol_re) > 0:
-        raise unported(f"smooth / random-effect terms in a {spec.type} model",
-                       "ssm_inner")
-    if reml:
-        raise unported(f"REML for a {spec.type} model", "ssm_inner")
+
+
+# The forward-mode twin's route on a CUDA device: the SoA filter's
+# "blocked" plain scan from this many steps, its "associative" scan
+# below (PERF.md §5 has both forms' times on the H100).
+TWIN_SOA_MIN_STEPS = 65536
+
+
+def twin_route(device: torch.device, n: int) -> str:
+    """The twin's route for n steps on `device`: "track" (the per-dim
+    sequential filter batched by track) on the CPU, else the SoA
+    filter's scan, "associative" or "blocked"."""
+    if device.type != "cuda":
+        return "track"
+    return "blocked" if n >= TWIN_SOA_MIN_STEPS else "associative"
 
 
 def resolve_device(device) -> torch.device:
@@ -107,13 +132,20 @@ class ObjectiveBundle:
     the state-space models it runs through reverse-only kernels."""
 
     joint_nllk: Callable  # penalized, fn(full_params_dict) -> 0-d tensor
-    joint_nllk_unpenalized: Callable  # the penalty dropped
+    joint_nllk_unpenalized: Callable  # the penalty dropped (twin route)
     packer: ParamPacker
     par_matrix: Callable  # fn(full_params_dict) -> (n, n_par) working scale
     n_obs: int
     dtype: torch.dtype
     device: torch.device
     kind: str = ""  # 'closed_form' | 'ssm'
+    # the forward-mode-capable twin of joint_nllk (joint_nllk itself for
+    # the closed-form models); without a mesh joint_nllk_ad_flat is it
+    joint_nllk_ad: Optional[Callable] = None
+    joint_nllk_ad_flat: Optional[Callable] = None
+    hess_plan: Optional[dict] = None  # colored inner-Hessian plan
+    twin: str = ""  # the twin's route (`twin_route`), state-space only
+    marginal: Optional[Callable] = None  # the Laplace marginal, made once
 
 
 def build_objective(
@@ -135,7 +167,7 @@ def build_objective(
     fixpar = list(fixpar or [])
     init = dict(init or {})
     map_fix = dict(map_fix or {})
-    check_slice(spec, design, other_data, reml)
+    check_slice(spec, other_data)
     device = resolve_device(device)
     n, n_dim = obs.shape
     param_names = list(spec.param_names)
@@ -178,6 +210,14 @@ def build_objective(
     else:
         data = prepare_diag_data(spec.type, obs, times, ids, dtype=dtype,
                                  device=device)
+    twin = "" if closed_form else twin_route(device, n)
+    if twin == "track":
+        # the sequential filter's own copy of the data and its host plan,
+        # made once outside every transform
+        obs_t = dev(obs)
+        ids_t = torch.as_tensor(np.asarray(ids), device=device)
+        dt_t = dev(precompute_dt(times, ids))
+        track_plan = track_pad_plan(ids, device=device)
 
     # ---- decay-modulated splines (closed-form models only,
     #      R/sde.R:634-653, nllk_sde.hpp:47-58) ----
@@ -316,6 +356,29 @@ def build_objective(
                 sigma_obs=sobs, data=data,
             )
 
+        def loglik_ad(full):
+            # the forward-mode-capable twin: no kernel, no
+            # autograd.Function, so vmap / jvp / grad compose at any order
+            sobs = torch.exp(full["log_sigma_obs"][0])
+            pm = par_matrix(full)
+            if twin != "track":
+                if spec.type == "CTCRW":
+                    return ctcrw_loglik_soa(pm, None, None, None,
+                                            sigma_obs=sobs, scan=twin,
+                                            data=data)
+                return diag_ssm_loglik_soa(spec.type, pm, None, None, None,
+                                           sigma_obs=sobs, scan=twin,
+                                           data=data)
+            if spec.type == "CTCRW":
+                steps = ctcrw_steps_perdim(pm, obs_t, None, ids_t,
+                                           sigma_obs=sobs, dt=dt_t)
+            else:
+                steps = diag_ssm_steps_perdim(spec.type, pm, obs_t, None,
+                                              ids_t, sigma_obs=sobs, dt=dt_t)
+            if track_plan is not None:
+                steps = batch_steps_by_track(steps, *track_plan)
+            return kalman_loglik_batched(steps)
+
     # ---- penalty ----
     penalty = make_penalty(design.S_groups, normalize=closed_form,
                            dtype=dtype, device=device)
@@ -326,10 +389,36 @@ def build_objective(
             val = val + penalty(full["coeff_re"], full["log_lambda"])
         return val
 
+    if closed_form:
+        joint_nllk_ad = joint_nllk
+    else:
+        def joint_nllk_ad(full):
+            val = -loglik_ad(full)
+            if has_re:
+                val = val + penalty(full["coeff_re"], full["log_lambda"])
+            return val
+
     def joint_nllk_unpenalized(full):
         # include_penalty = 0: the closed-form dispatcher drops the
-        # penalty entirely (nllk_sde.hpp:91); what conditional AIC needs
-        return -loglik(full)
+        # penalty entirely (nllk_sde.hpp:91); what conditional AIC needs,
+        # through the twin (callers take its Hessian)
+        return -(loglik if closed_form else loglik_ad)(full)
+
+    # ---- compressed inner-Hessian plan (infer/coloring.py) ----
+    # Only when the inner vector is exactly the full coeff_re (ML, no
+    # pinned entries): the plan's columns must match the inner vector
+    # one to one. A pure optimization: plan_coloring returns None
+    # whenever exact reconstruction is not guaranteed.
+    hess_plan = None
+    if has_re and not reml and not np.asarray(cre_fixed).any() \
+            and p_re >= 16:
+        from smoothsde_tpu_torch.infer.coloring import plan_coloring
+
+        pg_off = np.concatenate([[0], np.cumsum(design.ncol_re)]).astype(int)
+        hess_plan = plan_coloring(design.re_blocks(), [
+            (np.arange(pg_off[k], pg_off[k + 1]), design.S_groups[k])
+            for k in range(len(design.ncol_re))
+        ])
 
     return ObjectiveBundle(
         joint_nllk=joint_nllk,
@@ -340,4 +429,8 @@ def build_objective(
         dtype=dtype,
         device=device,
         kind=spec.kind,
+        joint_nllk_ad=joint_nllk_ad,
+        joint_nllk_ad_flat=joint_nllk_ad,
+        hess_plan=hess_plan,
+        twin=twin,
     )

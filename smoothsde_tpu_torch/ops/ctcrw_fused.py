@@ -145,7 +145,7 @@ def pad_to_lanes(x, pad_vals, p: Plan):
     i."""
     pad = p.NB * p.L - p.n
     if pad:
-        fill = torch.tensor(pad_vals, dtype=x.dtype, device=x.device)
+        fill = _const(pad_vals, x)
         x = torch.cat([x, fill.view(-1, 1, 1).expand(x.shape[0], p.d, pad)],
                       dim=-1)
     return _to_lanes(x, p._replace(n=p.NB * p.L))
@@ -474,6 +474,16 @@ def _identity(vals, like):
     return [torch.full_like(like, v) for v in vals]
 
 
+def _const(vals, like):
+    """vals as a (k,) tensor of like's dtype and device: one host copy,
+    or fills on the device while a CUDA graph is being captured (a
+    capture refuses host copies; the Laplace layer captures the twin,
+    whose "blocked" scan pads and prefixes through here)."""
+    if like.is_cuda and torch.cuda.is_current_stream_capturing():
+        return torch.stack(_identity(vals, like.new_empty(())))
+    return torch.tensor(vals, dtype=like.dtype, device=like.device)
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions of the five kernels (vectorized over lanes,
 # a Python loop over the L steps of a block)
@@ -539,7 +549,7 @@ def block_prefix_plain(totals, d, elem, reverse):
     x = totals.reshape(C, d, NB)
     if reverse:
         x = x.flip(-1)
-    ident = torch.tensor(k_.id_vals, dtype=x.dtype, device=x.device)
+    ident = _const(k_.id_vals, x)
 
     def fill(k):
         return ident.view(C, 1, 1).expand(C, d, k)

@@ -156,39 +156,39 @@ class DiagSystem(NamedTuple):
     p0: float
 
 
+def diag_transition(type, par_mat, dtv, d):
+    """The scalar transition of each step from par_mat (n, n_par) on the
+    working scale, the intervals dtv (n,) and d dims, unshifted (row i
+    propagates from step i to i + 1): t, q (n,) and the drift b (d, n).
+    BM_SSM: t = 1, b = mu dt, q = sigma^2 dt; OU_SSM: from the stable
+    `ou_transition_terms` (as the JAX package's `diag_ssm_loglik_soa`),
+    not from the `1 - decay**2` form of its `diag_system`, which cancels
+    in f32 at small dt/tau; in f64 the two agree to roundoff."""
+    mu = par_mat[:, :d]
+    if type == "BM_SSM":
+        sigma = torch.exp(par_mat[:, d])
+        return torch.ones_like(sigma), sigma**2 * dtv, dtv[None, :] * mu.T
+    if type == "OU_SSM":
+        tau = torch.exp(par_mat[:, d])
+        kappa = torch.exp(par_mat[:, d + 1])
+        ot = ou_transition_terms(tau, dtv)
+        return ot["decay"], kappa * ot["qfac"], ot["bfac"][None, :] * mu.T
+    raise ValueError(type)
+
+
 def diag_system(type, par_mat, obs, times, ids, sigma_obs, p0=P0,
                 data: DiagData = None) -> DiagSystem:
-    """The shifted/masked per-step scalar system from par_mat (n, n_par)
-    on the working scale. Pass `data` (prepare_diag_data of the same
-    type) to skip rebuilding the per-step data; obs/times/ids are then
-    unused.
-
-    The OU pieces come from the stable `ou_transition_terms` (as the JAX
-    package's `diag_ssm_loglik_soa`), not from the `1 - decay**2` form
-    of its `diag_system`, which cancels in f32 at small dt/tau; in f64
-    the two agree to roundoff."""
+    """The shifted/masked per-step scalar system (`diag_transition`) from
+    par_mat (n, n_par) on the working scale. Pass `data`
+    (prepare_diag_data of the same type) to skip rebuilding the per-step
+    data; obs/times/ids are then unused."""
     if data is None:
         data = prepare_diag_data(type, obs, times, ids, dtype=par_mat.dtype,
                                  device=par_mat.device)
     if data.dg is not None and type != "BM_SSM":
         raise ValueError("centred (BM_SSM) data given to an OU_SSM system")
-    d = data.yd.shape[0]
-    dtv = data.dtv
-    mu = par_mat[:, :d]
-    if type == "BM_SSM":
-        sigma = torch.exp(par_mat[:, d])
-        t_s = torch.ones_like(sigma)
-        b_s = dtv[None, :] * mu.T
-        q_s = sigma**2 * dtv
-    elif type == "OU_SSM":
-        tau = torch.exp(par_mat[:, d])
-        kappa = torch.exp(par_mat[:, d + 1])
-        ot = ou_transition_terms(tau, dtv)
-        t_s = ot["decay"]
-        b_s = ot["bfac"][None, :] * mu.T
-        q_s = kappa * ot["qfac"]
-    else:
-        raise ValueError(type)
+    t_s, q_s, b_s = diag_transition(type, par_mat, data.dtv,
+                                    data.yd.shape[0])
     h = torch.as_tensor(sigma_obs, dtype=par_mat.dtype,
                         device=par_mat.device) ** 2
     prev = data.prevf > 0.5

@@ -172,9 +172,11 @@ def _scan_elements(combine, identity, elem, scan: str, reverse=False):
     """Inclusive scan of `elem` (leaves (..., n)) along the last axis.
 
     scan: "blocked" (the block decomposition of ops/scan_utils.py with
-    its plain phase 1), "pallas" (the same with the phase-1 kernel K8 for
-    CUDA tensors), "auto" ("pallas" on a CUDA device, "blocked" on the
-    CPU: the fast blocked scan of the device, as in the JAX package),
+    its plain phases: no kernel, as the JAX package's "blocked"),
+    "pallas" (the same with the phase-1 kernel K8 and K2 for CUDA
+    tensors), "auto" ("pallas" on a CUDA device for the elements K8 is
+    built for, "blocked" otherwise: the fast blocked scan of the device,
+    as in the JAX package),
     "sequential" (one combine per step, a Python loop) or "associative"
     (Hillis-Steele over all n steps, plain torch). "fused" scans as
     "associative", as the JAX package's fallthrough does. reverse=True
@@ -185,7 +187,8 @@ def _scan_elements(combine, identity, elem, scan: str, reverse=False):
 
     if scan == "auto":
         leaf = scan_utils.elem_kind(combine).pack(elem)[0]
-        scan = "pallas" if leaf.is_cuda else "blocked"
+        k8 = scan_utils._kind_name(combine) in scan_utils._K8
+        scan = "pallas" if leaf.is_cuda and k8 else "blocked"
     if scan in ("blocked", "pallas"):
         return scan_utils.blocked_associative_scan(
             combine, identity, elem,
@@ -194,6 +197,8 @@ def _scan_elements(combine, identity, elem, scan: str, reverse=False):
         )
     if scan not in ("sequential", "associative", "fused"):
         raise ValueError(f"unknown scan {scan!r}")
+    if scan != "sequential" and combine is _combine2 and not reverse:
+        return _associative_elem2(elem)
     kind = scan_utils.elem_kind(combine)
     leaves = kind.pack(elem)
     shape = torch.broadcast_shapes(*(x.shape for x in leaves))
@@ -219,6 +224,64 @@ def _scan_elements(combine, identity, elem, scan: str, reverse=False):
     if reverse:
         xs = [x.flip(-1) for x in xs]
     return kind.unpack(xs)
+
+
+def _combine2_mat(e1, e2):
+    """`_combine2` on (A, b, C, eta, J) with 2x2 matrix and 2-vector
+    event axes last: the same operations in the same order (its values
+    bit for bit) in ~45 tensor operations instead of ~150."""
+    from smoothsde_tpu_torch.ops.kalman import _mm, _sym
+    from smoothsde_tpu_torch.ops.kalman import _mv as _mvm
+
+    A1, b1, C1, eta1, J1 = e1
+    A2, b2, C2, eta2, J2 = e2
+    G = _mm(C1, J2) + torch.eye(2, dtype=C1.dtype, device=C1.device)
+    g00, g01, g10, g11 = G[..., 0, 0], G[..., 0, 1], G[..., 1, 0], G[..., 1, 1]
+    det = g00 * g11 - g01 * g10
+    M = torch.stack([torch.stack([g11 / det, -g01 / det], -1),
+                     torch.stack([-g10 / det, g00 / det], -1)], -2)
+    A2M = _mm(A2, M)
+    A1tN = _mm(A1.transpose(-1, -2), M.transpose(-1, -2))
+    return (_mm(A2M, A1), _mvm(A2M, b1 + _mvm(C1, eta2)) + b2,
+            _sym(_mm(_mm(A2M, C1), A2.transpose(-1, -2)) + C2),
+            _mvm(A1tN, eta2 - _mvm(J2, b1)) + eta1,
+            _sym(_mm(_mm(A1tN, J2), A1) + J1))
+
+
+def _associative_elem2(elem: Element2) -> Element2:
+    """Hillis-Steele scan of filtering elements (leaves (..., n)) with
+    `_combine2_mat`: five tensors a level instead of fourteen."""
+    (a00, a01, a10, a11, b0, b1, c00, c01, c10, c11, e0, e1, j00, j01, j10,
+     j11) = torch.broadcast_tensors(
+        *elem.A[0], *elem.A[1], *elem.b, *elem.C[0], *elem.C[1], *elem.eta,
+        *elem.J[0], *elem.J[1])
+
+    def mat(x00, x01, x10, x11):
+        return torch.stack([torch.stack([x00, x01], -1),
+                            torch.stack([x10, x11], -1)], -2)
+
+    xs = [mat(a00, a01, a10, a11), torch.stack([b0, b1], -1),
+          mat(c00, c01, c10, c11), torch.stack([e0, e1], -1),
+          mat(j00, j01, j10, j11)]
+    n, k = a00.shape[-1], 1
+    eye = torch.eye(2, dtype=a00.dtype, device=a00.device)
+    while k < n:
+        sh = []
+        for i, x in enumerate(xs):
+            ax = a00.dim() - 1  # the step axis; event axes follow it
+            fill = x.new_zeros(x.shape[:ax] + (k,) + x.shape[ax + 1:])
+            if i == 0:  # the identity element's A
+                fill = fill + eye
+            sh.append(torch.cat([fill, x.narrow(ax, 0, n - k)], dim=ax))
+        xs = list(_combine2_mat(tuple(sh), tuple(xs)))
+        k *= 2
+    A, b, C, eta, J = xs
+
+    def tup(X):
+        return ((X[..., 0, 0], X[..., 0, 1]), (X[..., 1, 0], X[..., 1, 1]))
+
+    return Element2(tup(A), (b[..., 0], b[..., 1]), tup(C),
+                    (eta[..., 0], eta[..., 1]), tup(J))
 
 
 def precompute_dt(times, ids):
@@ -628,3 +691,25 @@ def diag_ssm_loglik_sequential(type, par_mat, obs, times, ids, sigma_obs,
         sysd, torch.stack(bs, dim=-1), torch.stack(Cs, dim=-1)
     )
 
+
+def diag_ssm_loglik_soa(type, par_mat, obs, times, ids, sigma_obs,
+                        scan: str = "auto", data=None):
+    """BM_SSM / OU_SSM log-likelihood through a scalar-state SoA filter:
+    ops/diag_fused.py's per-step system and 5-comp filtering elements
+    (`diag_system`, `diag_elements`), composed by `_comb1` through
+    `_scan_elements` ("blocked", "associative", "sequential"; "auto" is
+    "blocked", since the phase-1 kernel K8 is not built for these
+    elements: "pallas" on a CUDA tensor raises, ROADMAP queue 1 item 5),
+    the likelihood recovered elementwise (`diag_llk_from_filtered`).
+    Plain tensor arithmetic: every order of torch.func runs through it.
+    Port of the JAX package's `diag_ssm_loglik_soa`
+    (ops/kalman_soa.py:835-938). Pass `data` (prepare_diag_data of the
+    same type) to skip rebuilding the per-step data; obs/times/ids are
+    then unused."""
+    from smoothsde_tpu_torch.ops import diag_fused as df
+
+    sysd = df.diag_system(type, par_mat, obs, times, ids, sigma_obs,
+                          data=data)
+    _, bf, Cf, _, _ = _scan_elements(_comb1, _ID1, df.diag_elements(sysd),
+                                     scan)
+    return df.diag_llk_from_filtered(sysd, bf, Cf)

@@ -9,7 +9,10 @@ out as one time-major stack (L, C, lanes), C the element's components:
            (`pallas_phase1_scan`: the CUDA kernel K8 for CUDA tensors,
            its plain version for CPU tensors);
   phase 2: the exclusive cross-lane prefix of the lane totals, segmented
-           per row (K2, ops/ctcrw_fused.py `block_prefix`);
+           per row (with phase1="pallas" K2, ops/ctcrw_fused.py
+           `block_prefix`; with phase1="plain" its plain version, so that
+           the "plain" scan reaches no kernel and torch.func transforms
+           it, as the JAX package's XLA phases);
   phase 3: one elementwise combine(prefix, within), torch ops (XLA
            computes it in the JAX package).
 
@@ -98,7 +101,8 @@ def blocked_associative_scan(combine, identity, elems, phase1="plain",
     identity: its identity element (a pytree of floats); elems: element
     pytree whose leaves broadcast to one shape (..., n). phase1: "plain"
     (the plain within-lane scan) or "pallas" (`pallas_phase1_scan`: K8
-    for CUDA tensors). Returns the scanned pytree, leaves (..., n)."""
+    for CUDA tensors, with K2 for phase 2; "plain" runs no kernel).
+    Returns the scanned pytree, leaves (..., n)."""
     kind_name = _kind_name(combine)
     kind = cf.ELEMS[kind_name]
     leaves = kind.pack(elems)
@@ -115,7 +119,8 @@ def blocked_associative_scan(combine, identity, elems, phase1="plain",
     else:
         raise ValueError(f"unknown phase1 {phase1!r}")
     totals = within[0 if reverse else -1].contiguous()
-    excl = cf.block_prefix(totals, rows, kind_name, reverse)
+    prefix = cf.block_prefix if phase1 == "pallas" else cf.block_prefix_plain
+    excl = prefix(totals, rows, kind_name, reverse)
     out = kind.pack(combine(kind.unpack(excl.unbind(0)),
                             kind.unpack(within.unbind(1))))
     y = cf.unstack(torch.stack(out, dim=1), p)  # (C, rows, n)

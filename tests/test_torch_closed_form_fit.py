@@ -9,8 +9,9 @@ smooth (coeff_fe integrated out with coeff_re). Optimum within 1e-4
 absolute, nllk within 1e-8 relative, `cov_fixed` within 1e-3 relative,
 bhat and lambda within 1e-4; `from_reference` reproduces the JAX
 `joint_nllk` at the JAX optimum, and the port's marginal the JAX
-marginal there, to 1e-10. A state-space model with smooths, random
-effects or REML still raises, naming its ROADMAP item.
+marginal there, to 1e-10. A state-space model (BM_SSM) with random
+effects, or under REML, gives the JAX package's Laplace marginal (value
+1e-7 relative, gradient 1e-6).
 """
 
 import warnings
@@ -192,10 +193,13 @@ def test_from_reference_reproduces_joint_and_marginal(fits):
     ({"mu": "~1", "sigma": "~1"}, "REML"),
 ], ids=["random_effect", "reml"])
 def test_state_space_inner_coefficients_raise(formulas, criterion):
+    """Once the refusal of these state-space cases (ROADMAP queue 1 item
+    2), now their Laplace marginal against the JAX package's."""
+    from test_torch_ssm_laplace import assert_marginals_match, marginal_pair
+
     rng = np.random.default_rng(2)
     n = 60
     data = {"ID": np.repeat([0, 1, 2], 20), "time": np.arange(n) * 0.5,
             "y": np.cumsum(rng.normal(size=n))}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 2"):
-        SDE(formulas=formulas, data=data, type="BM_SSM", response="y",
-            device="cpu", dtype=F64).fit(criterion=criterion)
+    kw = dict(formulas=formulas, data=data, type="BM_SSM", response="y")
+    assert_marginals_match(*marginal_pair(kw, criterion == "REML"))

@@ -7,7 +7,10 @@ the port on the CPU (plain versions of the kernels; BM_SSM centred on
 its observations, as the port's objective does). Optimum parameters
 within 1e-4 absolute, nllk within 1e-8 relative, `cov_fixed` within
 1e-3 relative, and `from_reference` reproduces the JAX `joint_nllk` at
-the JAX optimum to 1e-10. Types and terms outside the slice still raise.
+the JAX optimum to 1e-10. A random effect on sigma (BM_SSM) and a smooth
+on tau (OU_SSM) give the JAX package's Laplace marginal (value 1e-7
+relative, gradient 1e-6). Types and options outside the slice still
+raise.
 """
 
 import warnings
@@ -93,17 +96,29 @@ def test_from_reference_reproduces_joint_nllk(fits):
 
 @pytest.mark.parametrize("typ,resp,kw", [
     ("ESEAL_SSM", "y1", {}),
-    ("BM_SSM", ["y1", "y2"], {"formulas": {
-        "mu1": "~1", "mu2": "~1", "sigma": "~s(ID, bs='re')"}}),
     ("BM_SSM", ["y1", "y2"], {"other_data": {"P0": np.eye(2)}}),
     ("OU_SSM", ["y1", "y2"], {"other_data": {"H": np.eye(2)}}),
-    ("OU_SSM", ["y1", "y2"], {"formulas": {
-        "mu1": "~1", "mu2": "~1", "tau": "~s(x, k=5)", "kappa": "~1"}}),
+    ("CTCRW", ["y1", "y2"], {"other_data": {"H": np.eye(2)}}),
 ])
 def test_outside_the_slice_raises(typ, resp, kw):
     data = _simulate("BM_SSM", n_per=(30,))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         SDE(data=data, type=typ, response=resp, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("typ,formulas", [
+    ("BM_SSM", {"mu1": "~1", "mu2": "~1", "sigma": "~s(ID, bs='re')"}),
+    ("OU_SSM", {"mu1": "~1", "mu2": "~1", "tau": "~s(x, k=5)",
+                "kappa": "~1"}),
+])
+def test_inner_coefficients_match_jax(typ, formulas):
+    """Formerly refused (ROADMAP queue 1 item 2): the Laplace marginal
+    of a random effect or a smooth on three short tracks."""
+    from test_torch_ssm_laplace import assert_marginals_match, marginal_pair
+
+    data = _simulate(typ, n_per=(30, 25, 20))
+    kw = dict(formulas=formulas, data=data, type=typ, response=["y1", "y2"])
+    assert_marginals_match(*marginal_pair(kw))
 
 
 def test_cuda_request_without_card_raises():

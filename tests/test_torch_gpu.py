@@ -604,3 +604,61 @@ def test_closed_form_on_card_matches_cpu_f64(cuda, typ):
                                atol=1e-8 * max(1.0, np.max(np.abs(rg))))
     assert len(b) == gpu.packer.n_inner == (4 if typ == "OU" else 0)
     np.testing.assert_allclose(b, rb, rtol=0, atol=1e-8)
+
+
+@pytest.mark.gpu
+def test_config4_marginal_f32_matches_f64(cuda):
+    """Config 4 (8 x 250-step CTCRW, tau ~ s(ID, bs='re')) on the card:
+    the Laplace marginal (value term on K1-K3, the second-order terms on
+    the forward-mode twin) in f32 within 1e-4 relative of f64's at the
+    start point, its gradient within 1e-4 of |nllk|, and a marginal
+    evaluation launches every CTCRW kernel."""
+    import chip_smoke
+    from smoothsde_tpu_torch import SDE
+    from smoothsde_tpu_torch.infer.fit import make_val_grad
+
+    kw, _ = chip_smoke.config4()
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        bundle = SDE(**kw, device="cuda", dtype=dtype).bundle()
+        cf.reset_launches()
+        out[dtype] = make_val_grad(bundle)(bundle.packer.outer_init())
+        for name in CTCRW_KERNELS:
+            assert cf.LAUNCHES[name] > 0, name
+    (v32, g32, b32), (v64, g64, b64) = out[torch.float32], out[torch.float64]
+    assert abs(v32 - v64) <= 1e-4 * abs(v64)
+    assert np.max(np.abs(g32 - g64)) <= 1e-4 * abs(v64)
+    assert np.all(np.isfinite(b32)) and len(b32) == len(b64) == 8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("typ", ["CTCRW", "OU_SSM", "BM_SSM"])
+def test_twin_matches_kernels_200k(cuda, typ):
+    """The forward-mode twin's long branch (the SoA filter's plain
+    "blocked" scan) against the kernel route at n = 200,000 on two
+    tracks, f64: value within 1e-10 relative, gradient within 1e-8 of
+    its largest component; the twin launches no kernel."""
+    from smoothsde_tpu_torch import SDE
+
+    obs, times, ids, _ = _data(2, 200_000, 11)
+    data = {"ID": ids, "time": times, "y1": obs[:, 0], "y2": obs[:, 1]}
+    par0 = {"CTCRW": [0.0, 0.0, 2.0, 0.8], "OU_SSM": [0.0, 0.0, 1.0, 1.0],
+            "BM_SSM": [0.0, 0.0, 0.5]}[typ]
+    bundle = SDE(data=data, type=typ, response=["y1", "y2"], par0=par0,
+                 device="cuda", dtype=torch.float64).bundle()
+    assert bundle.twin == "blocked"
+
+    def value_grad(fn):
+        x = torch.tensor(bundle.packer.outer_init(), device=cuda,
+                         requires_grad=True)
+        v = fn(bundle.packer.unpack(x))
+        (g,) = torch.autograd.grad(v, x)
+        return float(v.detach()), g.cpu().numpy()
+
+    cf.reset_launches()
+    tv, tg = value_grad(bundle.joint_nllk_ad)
+    assert not any(cf.LAUNCHES.values())
+    kv, kg = value_grad(bundle.joint_nllk)
+    assert tv == pytest.approx(kv, rel=1e-10)
+    np.testing.assert_allclose(tg, kg, rtol=0,
+                               atol=1e-8 * np.max(np.abs(kg)))

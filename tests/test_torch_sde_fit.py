@@ -7,7 +7,8 @@ the kernels). Optimum parameters within 1e-4 absolute, nllk within 1e-8
 relative, `cov_fixed` within 1e-3 relative, and `from_reference`
 reproduces the JAX `joint_nllk` at the JAX optimum to 1e-10;
 `smoothed_states()` at the same parameters agrees with the JAX
-package's to 1e-10.
+package's to 1e-10. A smooth on tau gives the JAX package's Laplace
+marginal (value 1e-7 relative, gradient 1e-6).
 """
 
 import dataclasses
@@ -97,13 +98,22 @@ def test_outside_the_slice_raises():
     data = _simulate(n_per=(30,))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         SDE(data=data, type="ESEAL_SSM", response="y1", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SDE(formulas={"mu1": "~1", "mu2": "~1", "tau": "~s(x, k=5)",
-                      "nu": "~1"},
-            data=data, type="CTCRW", response=["y1", "y2"], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SDE(data=data, type="CTCRW", response=["y1", "y2"], device="cpu",
-            other_data={"P0": np.eye(2)})
+    for key in ("H", "P0"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            SDE(data=data, type="CTCRW", response=["y1", "y2"],
+                device="cpu", other_data={key: np.eye(2)})
+
+
+def test_smooth_marginal_matches_jax():
+    """Formerly refused (ROADMAP queue 1 item 2): `tau ~ s(x, k=5)` on
+    two short tracks through the Laplace marginal."""
+    from test_torch_ssm_laplace import assert_marginals_match, marginal_pair
+
+    kw = dict(formulas={"mu1": "~1", "mu2": "~1", "tau": "~s(x, k=5)",
+                        "nu": "~1"},
+              data=_simulate(n_per=(30, 25)), type="CTCRW",
+              response=["y1", "y2"], par0=PAR0)
+    assert_marginals_match(*marginal_pair(kw))
 
 
 def test_cuda_request_without_card_raises():
