@@ -89,6 +89,22 @@ non-zero before the final line:
      optimum and the start; then its nllk+grad wall (110 calls), device
      busy share and device operations per call (profiler) and peak
      memory, on the SUMMARY line under "closed_form";
+     3l. the API tail at config 4 from 3i's f32 fit (no refit): the
+     joint covariance, pointwise and simultaneous CIs over all 2,000 rows
+     (n_post 1,000), par(term=), linear_predictor, make_mat_grid("ID"),
+     log_lik (a forward pass through K1a, K2, K1b, gated to launch those
+     once each), edf_conditional, AIC, BIC, simulate(posterior=True),
+     check_post (20 simulations), save_state and load_state into a new
+     f64 model; gates: f32 against f64 at the same checkpoint, log_lik
+     1e-4 and edf 1e-3 relative; the f64 log_lik through the kernels
+     against the twin's -joint_nllk_unpenalized, 1e-10 relative; the
+     reloaded model's CIs bit for bit; prints each call's seconds;
+     3m. fit(optimizer="device") at config 5a (each L-BFGS step one CUDA
+     graph, one host read) and optimizer="auto" at config 2 (resolves to
+     "device"); gates: convergence, 5a's tau and nu and config 2's tau
+     within 5%, the final nllk within 1e-4 relative of the scipy fits of
+     3 and 3g, 5a's steps a graph; prints walls, iterations, evaluations,
+     kernel launches and host reads per iteration, the idle share;
   4. each kernel against its plain version at its fit's shapes (the
      diag kernels at both the OU_SSM and the BM_SSM fit's, the
      element-space kernels and K8 at config 5a's; f64, max abs error
@@ -203,6 +219,11 @@ TRAFFIC = {
 }
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s, f32 flop/s
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+
+
+# the CTCRW kernels of a value-only pass (log_lik, the probes)
+FORWARD_KERNELS = ("ctcrw_filter_totals", "block_prefix_filter",
+                   "ctcrw_filter_scan")
 
 
 class SmokeFailure(Exception):
@@ -610,6 +631,11 @@ def profile_device_ms(fn, reps, torch, stats=None):
         log(f"    {us:9.1f} us  x{count:3d}  {key}")
     if stats is not None:
         stats["device_ops"] = ops / reps
+        stats["kernel_counts"] = {
+            name: sum(e.count for e in prof.key_averages()
+                      if str(e.device_type).endswith("CUDA")
+                      and kernel_of(e.key) == name) / reps
+            for name, _, _ in KERNELS}
     return ({k: v / 1e3 / reps for k, v in per_kernel.items()},
             busy_us / 1e3 / reps, wall_ms / reps)
 
@@ -1209,10 +1235,9 @@ def phase_config4(torch, card):
     quantity on the forward-mode twin (no kernel). Gates: convergence;
     f32 against f64: marginal nllk within 1e-4 relative, and the outer
     estimates apart by at most 0.1 f64 standard errors, the log smoothing
-    parameter by at most 1 (the measured spread, PERF.md §6: <= 0.05 and
-    0.42; the smoothing parameter's direction is flat, and at the
-    reference's f32 gtol the f32 fit stops 0.1-0.3 from the f64 fit in
-    log lambda); the f64 marginal value and gradient at
+    parameter by at most 1 (the smoothing parameter's direction is flat;
+    measured, PERF.md §6: 0.040 and 0.056, the same in every process
+    history); the f64 marginal value and gradient at
     tests/golden/config4.npz's frozen point within test_golden.py's bars
     (value 1e-7 (1 + |v|), gradient rtol 1e-6, atol 1e-7); the joint
     precision finite and symmetric, its inner block positive definite;
@@ -1225,7 +1250,8 @@ def phase_config4(torch, card):
     marginal evaluation, the kernels' launches per marginal evaluation
     and errors against their plain versions, device operations and busy
     / idle share per marginal evaluation, peak memory (smoothsde_tpu_torch/
-    twin_bench.py times the twin's forms)."""
+    twin_bench.py times the twin's forms). Returns (the results, the f32
+    fitted model)."""
     from smoothsde_tpu_torch.infer.fit import make_val_grad
     from smoothsde_tpu_torch.ops import ctcrw_fused as cf
     from smoothsde_tpu_torch.ops.kalman_soa import prepare_ctcrw_data
@@ -1338,6 +1364,252 @@ def phase_config4(torch, card):
            "peak_memory_bytes_fit": fit_peak,
            "peak_memory_bytes_marginal_eval": eval_peak}
     log(f"[3i] {json.dumps(out)}")
+    return out, sde  # phase 3l starts from the f32 fit
+
+
+def phase_api_tail(torch, card, sde):
+    """Phase 3l: the API tail at config 4 on the card, from phase 3i's
+    f32 fit `sde` (no refit): joint_cov, CI_pointwise and CI_simultaneous over
+    all 2,000 rows (n_post 1,000, fixed seeds), par(term=) and
+    linear_predictor, make_mat_grid("ID"), log_lik (a forward pass
+    through K1a, K2, K1b), edf_conditional (torch.func.hessian of the
+    twin), the AICs and BIC, simulate(posterior=True) and check_post
+    (n_sims 20), save_state, then load_state into a new f64 model.
+    Gates: every output finite and of its shape; log_lik launches K1a,
+    K2 and K1b once each and nothing else; at the same checkpoint the
+    f32 model's log_lik within 1e-4 relative and edf_conditional within
+    1e-3 relative of the f64 model's; the f64 log_lik through the
+    kernels equal to -joint_nllk_unpenalized through the twin to 1e-10
+    relative; the reloaded model's CIs equal the original's at the same
+    seeds, bit for bit. Prints the seconds of each call."""
+    from smoothsde_tpu_torch import SDE
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+
+    kw, _ = config4()
+    n = len(kw["data"]["ID"])
+    n_par = len(sde.par_names())
+    secs = {}
+
+    def timed(name, fn):
+        t = time.time()
+        value = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.time() - t
+        return value
+
+    def rng(seed):
+        return np.random.default_rng(seed)
+
+    V = timed("joint_cov", sde.joint_cov)
+    k = len(sde.out().par) + len(sde.out().bhat)
+    check(V.shape == (k, k) and np.all(np.isfinite(V)),
+          f"3l: joint_cov {V.shape} not finite or not {k} x {k}")
+    ci_pw = timed("CI_pointwise", lambda: sde.CI_pointwise(
+        t="all", n_post=1000, rng=rng(21)))
+    ci_sim = timed("CI_simultaneous", lambda: sde.CI_simultaneous(
+        t="all", n_post=1000, rng=rng(22)))
+    for name, ci in (("CI_pointwise", ci_pw), ("CI_simultaneous", ci_sim)):
+        check(ci.shape == (n_par, 2, n) and np.all(np.isfinite(ci))
+              and np.all(ci[:, 0] <= ci[:, 1]),
+              f"3l: {name} {ci.shape} not finite or not ordered")
+    p_term = timed("par_term", lambda: sde.par(t="all", term="tau.s(ID)"))
+    lp = timed("linear_predictor", sde.linear_predictor)
+    grid = timed("make_mat_grid", lambda: sde.make_mat_grid("ID"))
+    check(p_term.shape == lp.shape == (n, n_par)
+          and np.all(np.isfinite(p_term)) and np.all(np.isfinite(lp)),
+          "3l: par(term=) or linear_predictor not finite")
+    check(grid["X_fe"].shape[0] == 8 * n_par
+          and np.all(np.isfinite(grid["X_re"])),
+          f"3l: make_mat_grid('ID') X_fe {grid['X_fe'].shape}")
+    cf.reset_launches()
+    ll = timed("log_lik", sde.log_lik)
+    ll_launches = {k_: v for k_, v in cf.LAUNCHES.items() if v}
+    check(ll_launches == {"ctcrw_filter_totals": 1, "block_prefix_filter": 1,
+                          "ctcrw_filter_scan": 1},
+          f"3l: log_lik launched {ll_launches}, not K1a, K2, K1b once each")
+    edf = timed("edf_conditional", sde.edf_conditional)
+    aic_c = timed("AIC_conditional", sde.AIC_conditional)
+    aic_m = timed("AIC_marginal", sde.AIC_marginal)
+    bic = timed("BIC", sde.BIC)
+    check(all(np.isfinite([ll, edf, aic_c, aic_m, bic])),
+          "3l: log_lik, edf or an information criterion not finite")
+    sim = timed("simulate", lambda: sde.simulate(posterior=True,
+                                                 rng=rng(23)))
+    check(all(np.isfinite(sim[r]).all() for r in ("y1", "y2")),
+          "3l: simulate(posterior=True) not finite")
+
+    def step_length(d):
+        return [np.nanmean(np.hypot(np.diff(d["y1"]), np.diff(d["y2"])))]
+
+    cp = timed("check_post", lambda: sde.check_post(
+        step_length, n_sims=20, silent=True, rng=rng(24)))
+    check(cp["stats"].shape == (1, 20) and np.all(np.isfinite(cp["stats"])),
+          "3l: check_post statistics not finite")
+    path = os.path.join(HERE, "build", "chip_smoke_config4.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    timed("save_state", lambda: sde.save_state(path))
+    sde64 = SDE(**kw, device="cuda", dtype=torch.float64)
+    timed("load_state", lambda: sde64.load_state(path))
+    ll64 = timed("log_lik_f64", sde64.log_lik)
+    edf64 = timed("edf_conditional_f64", sde64.edf_conditional)
+    r = sde64.out()
+    b64 = sde64.bundle()
+    with torch.no_grad():
+        full = b64.packer.unpack(
+            torch.tensor(r.par, dtype=torch.float64, device="cuda"),
+            torch.tensor(r.bhat, dtype=torch.float64, device="cuda"))
+        twin64 = -float(b64.joint_nllk_unpenalized(full))
+    e_ll = abs(ll - ll64) / abs(ll64)
+    e_edf = abs(edf - edf64) / abs(edf64)
+    e_twin = abs(ll64 - twin64) / abs(twin64)
+    check(e_ll <= 1e-4, f"3l: f32 log_lik {ll} vs f64 {ll64}: rel {e_ll:.3e}")
+    check(e_edf <= 1e-3,
+          f"3l: f32 edf {edf} vs f64 {edf64}: rel {e_edf:.3e}")
+    check(e_twin <= 1e-10, f"3l: f64 log_lik through the kernels {ll64} vs "
+          f"the twin {twin64}: rel {e_twin:.3e}")
+    same_pw = np.array_equal(sde64.CI_pointwise(t="all", n_post=1000,
+                                                rng=rng(21)), ci_pw)
+    same_sim = np.array_equal(sde64.CI_simultaneous(t="all", n_post=1000,
+                                                    rng=rng(22)), ci_sim)
+    check(same_pw and same_sim, "3l: the reloaded model's CIs differ from "
+          f"the original's (pointwise {same_pw}, simultaneous {same_sim})")
+    out = {"card": card, "seconds": secs, "log_lik": ll,
+           "log_lik_f64": ll64, "log_lik_rel": e_ll,
+           "log_lik_f64_vs_twin_rel": e_twin, "edf_conditional": edf,
+           "edf_conditional_f64": edf64, "edf_rel": e_edf,
+           "AIC_conditional": aic_c, "AIC_marginal": aic_m, "BIC": bic,
+           "log_lik_launches": ll_launches,
+           "check_post_obs": cp["obs_stat"].tolist(),
+           "check_post_stats_mean": float(cp["stats"].mean()),
+           "tau_CI_pointwise_width_mean":
+               float(np.mean(ci_pw[2, 1] - ci_pw[2, 0]))}
+    log(f"[3l] {json.dumps(out)}")
+    return out
+
+
+def phase_device_optimizer(torch, card, data5a, res5a, fit5a_s, cfg2):
+    """Phase 3m: `fit(optimizer="device")` at config 5a (1M-step 2-D
+    CTCRW, f32: each L-BFGS step one CUDA graph of val+grad and the
+    update, one host read) and `fit(optimizer="auto")` at config 2 (which
+    resolves to "device": the Laplace marginal, eager, then the host
+    polish). Gates: convergence through the optimizer, gtol or a probe;
+    tau and nu within 5% at 5a, tau within 5% at config 2; the final
+    nllk within 1e-4 relative of the scipy fits of phases 3 and 3g; at
+    5a every step a CUDA graph, and every CTCRW kernel launched during
+    the fit (its wrappers count the eager evaluations and the capture;
+    the profiler counts the replays). Prints the walls, iterations and
+    evaluations, kernel launches and host reads per iteration, and the
+    profiler's idle share of a second 5a fit."""
+    from smoothsde_tpu_torch import SDE
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+
+    vias = ("optimizer", "gtol", "slope_probe", "descent_probe")
+    cf.reset_launches()
+    t = time.time()
+    sde = SDE(data=data5a, type="CTCRW", response=["y1", "y2"],
+              par0=[0, 0, 2, 0.8], device="cuda")
+    r = sde.fit(optimizer="device")
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = {k: v for k, v in cf.LAUNCHES.items() if v}
+    tau, nu = (float(v) for v in sde.par(t=0)[0, 2:4])
+    e_v = abs(r.value - res5a.value) / abs(res5a.value)
+    n_iter = r.counts["iterations"]
+    log(f"[3m] 5a device fit {wall:.2f} s: {n_iter} iterations, "
+        f"{r.device_steps} steps ({r.device_graph}), counts {r.counts}, "
+        f"via {r.convergence_via}, tau {tau:.4f}, nu {nu:.4f}, nllk "
+        f"{r.value:.3f} (scipy {res5a.value:.3f}, rel {e_v:.2e}), timings "
+        f"{r.timings}")
+    check(r.optimizer == "device" and r.convergence_via in vias,
+          f"3m: 5a device fit did not converge: {r.message}")
+    check(abs(tau - 3.0) / 3.0 < 0.05 and abs(nu - 1.0) < 0.05,
+          f"3m: 5a tau {tau} or nu {nu} not within 5%")
+    check(e_v <= 1e-4, f"3m: 5a device nllk {r.value} vs scipy "
+          f"{res5a.value}: rel {e_v:.3e}")
+    check(r.device_graph == "graph",
+          f"3m: 5a L-BFGS steps not a CUDA graph: {r.device_graph}")
+    for name, _, _ in CTCRW_KERNELS:
+        check(launches.get(name, 0) > 0,
+              f"3m: {name} not launched by the device fit")
+    stats = {}
+    profiled = {}
+
+    def refit():
+        profiled["res"] = sde.fit(optimizer="device")
+
+    _, busy_ms, prof_wall_ms = profile_device_ms(refit, 1, torch, stats)
+    steps = profiled["res"].device_steps
+    # The profiler counts every kernel the fit ran, the graph replays'
+    # included (a wrapper counts only the eager calls and the capture).
+    # Outside the loop: the start's evaluation, the capture's warm-up and
+    # checking replay, the five value-only probes (forward kernels only)
+    # and the FD Hessian's 4 n_outer gradients; the loop adds one launch
+    # of each kernel a step. K2's count is of its three kernels a call.
+    n_out = len(r.par)
+    per_fit = {}
+    per_iter = {}
+    for name, _, _ in CTCRW_KERNELS:
+        calls = stats["kernel_counts"][name] / (
+            3 if name.startswith("block_prefix") else 1)
+        outside = 3 + 4 * n_out + (5 if name in FORWARD_KERNELS else 0)
+        per_fit[name] = calls
+        per_iter[name] = (calls - outside) / profiled["res"].counts[
+            "iterations"]
+        check(calls == outside + steps,
+              f"3m: {name} ran {calls} times in the profiled fit, not "
+              f"{outside} + {steps} steps")
+
+    kw2, truth2 = config2()
+    t = time.time()
+    sde2 = SDE(**kw2, device="cuda")
+    r2 = sde2.fit(optimizer="auto")
+    torch.cuda.synchronize()
+    wall2 = time.time() - t
+    tau2 = float(sde2.par(t=0)[0, 1])
+    e_v2 = abs(r2.value - cfg2["nllk"]) / abs(cfg2["nllk"])
+    log(f"[3m] config 2 auto fit {wall2:.2f} s: optimizer {r2.optimizer}, "
+        f"{r2.device_steps} steps ({r2.device_graph}), counts {r2.counts}, "
+        f"via {r2.convergence_via}, tau {tau2:.4f}, nllk {r2.value:.4f} "
+        f"(scipy {cfg2['nllk']:.4f}, rel {e_v2:.2e})")
+    check(r2.optimizer == "device",
+          f"3m: config 2 'auto' chose {r2.optimizer}")
+    check(r2.convergence_via in vias,
+          f"3m: config 2 device fit did not converge: {r2.message}")
+    check(abs(tau2 - truth2["tau"]) / truth2["tau"] < 0.05,
+          f"3m: config 2 tau {tau2} not within 5% of {truth2['tau']}")
+    check(e_v2 <= 1e-4, f"3m: config 2 device nllk {r2.value} vs scipy "
+          f"{cfg2['nllk']}: rel {e_v2:.3e}")
+    out = {"card": card,
+           "config5a": {"wall_s": wall, "scipy_wall_s": fit5a_s,
+                        "iterations": n_iter, "steps": r.device_steps,
+                        "evals": r.counts["evals"],
+                        "scipy_evals": res5a.counts["evals"],
+                        "host_reads_per_iteration":
+                            (r.device_steps + 1) / n_iter,
+                        "host_reads_per_loop_evaluation":
+                            (r.device_steps + 1) / r.counts["device_evals"],
+                        "graph": r.device_graph, "via": r.convergence_via,
+                        "tau": tau, "nu": nu, "nllk": r.value,
+                        "nllk_scipy": res5a.value, "nllk_rel": e_v,
+                        "timings_s": r.timings,
+                        "wrapper_launches_fit": launches,
+                        "kernel_calls_fit_profiler": per_fit,
+                        "kernel_launches_per_iteration": per_iter,
+                        "profile_fit_ms": {"device_busy": busy_ms,
+                                           "wall": prof_wall_ms},
+                        "device_idle_share": 1.0 - busy_ms / prof_wall_ms,
+                        "device_ops_fit": stats["device_ops"]},
+           "config2": {"wall_s": wall2, "scipy_wall_s": cfg2["wall_s"],
+                       "optimizer": r2.optimizer,
+                       "steps": r2.device_steps,
+                       "iterations": r2.counts["iterations"],
+                       "evals": r2.counts["evals"],
+                       "scipy_evals": cfg2["evals"],
+                       "graph": r2.device_graph,
+                       "via": r2.convergence_via, "tau": tau2,
+                       "nllk": r2.value, "nllk_scipy": cfg2["nllk"],
+                       "nllk_rel": e_v2, "timings_s": r2.timings}}
+    log(f"[3m] {json.dumps(out)}")
     return out
 
 
@@ -1945,7 +2217,7 @@ def main():
     closed["config5b_cir"] = phase_config5b(torch, card)
     log("[3i] config 4: 8 x 250-step CTCRW with tau ~ s(ID, bs='re'), the "
         "state-space Laplace layer on the card, f32 and f64")
-    c4 = phase_config4(torch, card)
+    c4, sde4 = phase_config4(torch, card)
     log("[3j] the forward-mode twin at 1M steps (CTCRW 5a, OU_SSM 3b) "
         "against the kernel route, f32")
     twin = phase_twin_1m(torch, card, [
@@ -1953,6 +2225,12 @@ def main():
         ("OU_SSM_3b", ou["b32"], ou["b64"], ou["res"].par)])
     log("[3k] the colored inner Hessian: the wide-random-effect BM fit")
     colored = phase_colored(torch, card)
+    log("[3l] the API tail at config 4 from 3i's f32 fit: intervals, model "
+        "selection, simulation, checkpoints")
+    api_tail = phase_api_tail(torch, card, sde4)
+    log("[3m] fit(optimizer='device') at config 5a and 'auto' at config 2")
+    device_opt = phase_device_optimizer(torch, card, data, res, fit_s,
+                                        closed["config2_ou_smooth"])
 
     log("[4] kernels vs plain at the fit's shapes, and times")
     ops_k, ops_p = cf.OPS["kernels"], cf.OPS["plain"]
@@ -1988,6 +2266,8 @@ def main():
     for e in kernels:
         e["launches_config4_per_marginal_eval"] = \
             c4["launches_per_marginal_eval"].get(e["name"], 0)
+        e["launches_per_device_lbfgs_iteration_5a"] = \
+            device_opt["config5a"]["kernel_launches_per_iteration"][e["name"]]
         e.update(c4["kernel_checks"][e["name"]])
     for e in kernels:
         log(f"  {e['name']}: {e['ms']:.4f} ms (plain {e['plain_ms']:.2f} ms),"
@@ -2064,6 +2344,8 @@ def main():
     fit_line["config4_ssm_laplace"] = c4
     fit_line["twin_1m"] = twin
     fit_line["colored_hessian_fit"] = colored
+    fit_line["api_tail_config4"] = api_tail
+    fit_line["device_optimizer"] = device_opt
     for fit, times in ((ou, ou_times), (bm, bm_times)):
         fit_line[fit["typ"]] = {"fit": fit["summary"], **times}
     log("SUMMARY " + json.dumps(fit_line))

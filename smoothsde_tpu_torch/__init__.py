@@ -10,6 +10,9 @@ closed-form models (BM, BM_t, OU, CIR) run on plain torch ops, with
 smooths and random effects integrated out by the Laplace approximation. The device is explicit:
 `SDE(..., device="cuda")` by default, `device="cpu"` for the plain
 versions.
+
+The exports are the JAX package's, less `enable_compilation_cache`: the
+JAX persistent-cache machinery (utils/cache.py) has no counterpart here.
 """
 
 __version__ = "0.1.0"
@@ -18,6 +21,12 @@ __version__ = "0.1.0"
 # without the formula and fitting layers.
 _LAZY = {
     "SDE": ("smoothsde_tpu_torch.api.sde", "SDE"),
+    "MODEL_TYPES": ("smoothsde_tpu_torch.models.registry", "MODEL_TYPES"),
+    "get_model_spec": ("smoothsde_tpu_torch.models.registry",
+                       "get_model_spec"),
+    "prec_to_cov": ("smoothsde_tpu_torch.utils.misc", "prec_to_cov"),
+    "term_indices": ("smoothsde_tpu_torch.utils.misc", "term_indices"),
+    "ctcrw_cov": ("smoothsde_tpu_torch.utils.misc", "ctcrw_cov"),
 }
 
 __all__ = list(_LAZY)

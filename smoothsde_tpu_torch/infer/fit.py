@@ -1,9 +1,13 @@
-"""Outer optimization (host BFGS over the Laplace marginal) and the
-sdreport equivalent (outer Hessian, joint precision of all parameters).
+"""Outer optimization (BFGS over the Laplace marginal) and the sdreport
+equivalent (outer Hessian, joint precision of all parameters).
 
-Port of the host-optimizer path of smoothsde_tpu/infer/fit.py
-(fit_model with optimizer="scipy", and _sdreport in host mode). This
-mirrors the reference's fit path (R/sde.R:683-720): optim(...,
+Port of smoothsde_tpu/infer/fit.py (fit_model and _sdreport in host
+mode). Two optimizers: "scipy", host BFGS with one host round trip per
+evaluation, and "device", the L-BFGS of infer/lbfgs.py with its state on
+the model's device, followed by the slope and descent probes and the
+finite-difference outer Hessian, all on the device and read back in one
+copy, then a short host BFGS polish where the JAX package runs one. The
+"scipy" path mirrors the reference's fit path (R/sde.R:683-720): optim(...,
 method="BFGS") over fn/gr, here the Laplace marginal of
 infer/laplace.py and its exact implicit-function gradient (the joint
 nllk itself when there are no inner coefficients), then the outer
@@ -33,6 +37,8 @@ import torch
 from smoothsde_tpu_torch.infer.laplace import make_laplace
 from smoothsde_tpu_torch.utils.misc import prec_to_cov
 
+OPTIMIZERS = ("scipy", "device", "auto")
+
 
 @dataclasses.dataclass
 class FitResult:
@@ -53,7 +59,12 @@ class FitResult:
     # which criterion earned convergence == 0: 'optimizer', 'gtol',
     # 'slope_probe', 'descent_probe', or 'none'
     convergence_via: str = "none"
+    # which optimizer ran ('scipy' or 'device'): what 'auto' resolved to
     optimizer: str = "scipy"
+    # the device optimizer's steps (one evaluation and one host read
+    # each) and how they ran: "graph", "eager", or why not a graph
+    device_steps: int = 0
+    device_graph: Optional[str] = None
 
 
 def make_val_grad(bundle):
@@ -92,6 +103,53 @@ def make_val_grad(bundle):
     return val_grad
 
 
+def resolve_optimizer(bundle) -> str:
+    """optimizer="auto": "device" on a CUDA model for every closed-form
+    model, for small models (n <= 5,000 steps and <= 64 inner
+    coefficients) and for models without inner coefficients (config 5a),
+    where the host round trip of each evaluation outweighs the
+    evaluation; "scipy" otherwise (the JAX package's thresholds, with a
+    CUDA device where it tests for a TPU)."""
+    small = bundle.n_obs <= 5000 and bundle.packer.n_inner <= 64
+    no_inner = bundle.packer.n_inner == 0
+    on_card = bundle.device.type == "cuda"
+    return "device" if on_card and (
+        bundle.kind == "closed_form" or small or no_inner) else "scipy"
+
+
+def _scipy_objective(val_grad, b_warm):
+    """scipy's view of val_grad: (at, fun, jac). `at(x)` -> (value,
+    gradient, bhat) with a one-entry cache, each inner solve warm-started
+    at the last finite point's bhat (b_warm first); `fun` and `jac` are
+    line-search-safe: a non-finite value becomes 1e10 and its gradient 0,
+    a non-finite gradient entry 0 (scipy's Wolfe search gives up on inf
+    and nan)."""
+    cache = {}
+
+    def at(x):
+        nonlocal b_warm
+        key = np.asarray(x, float).tobytes()
+        if key not in cache:
+            v, g, b = val_grad(x, b_warm)
+            if np.isfinite(v):
+                b_warm = b  # warm start of the next inner solve
+            cache.clear()
+            cache[key] = (v, g, b)
+        return cache[key]
+
+    def fun(x):
+        v = at(x)[0]
+        return v if np.isfinite(v) else 1e10
+
+    def jac(x):
+        v, g, _ = at(x)
+        if not np.isfinite(v):
+            return np.zeros_like(g)
+        return np.where(np.isfinite(g), g, 0.0)
+
+    return at, fun, jac
+
+
 def fit_model(
     bundle,
     method: str = "BFGS",
@@ -99,9 +157,19 @@ def fit_model(
     compute_sdreport: bool = True,
     fd_step: float = 1e-4,
     verbose: bool = False,
+    optimizer: str = "scipy",
 ) -> FitResult:
+    """optimizer: "scipy" (host BFGS over the device's value and
+    gradient, the reference's optim(BFGS), R/sde.R:694-697), "device"
+    (infer/lbfgs.py: one scalar read per step; the val+grad step is a
+    CUDA graph without inner coefficients), or "auto"
+    (`resolve_optimizer`)."""
     from scipy import optimize
 
+    if optimizer not in OPTIMIZERS:
+        raise ValueError(f"optimizer must be one of {OPTIMIZERS}")
+    if optimizer == "auto":
+        optimizer = resolve_optimizer(bundle)
     packer = bundle.packer
     raw_val_grad = make_val_grad(bundle)
     n_evals = 0
@@ -124,19 +192,6 @@ def fit_model(
             systime=0.0, message="no outer parameters", bhat=b,
             inner_names=packer.inner_names(), convergence_via="optimizer",
         )
-    cache = {}
-
-    def eval_at(x):
-        nonlocal b_warm
-        key = np.asarray(x, float).tobytes()
-        if key not in cache:
-            v, g, b = val_grad(x, b_warm)
-            if np.isfinite(v):
-                b_warm = b  # warm start of the next inner solve
-            cache.clear()
-            cache[key] = (v, g, b)
-        return cache[key]
-
     # scipy BFGS reports "precision loss" when the line search stalls at
     # the optimum; treat a small gradient as converged regardless. The
     # tolerance scales with the objective magnitude and dtype: f32
@@ -149,19 +204,11 @@ def fit_model(
     def _gtol(v):
         return max(floor, eps * (1.0 + abs(v)))
 
-    # Line-search-safe wrappers: replace non-finite values with a large
-    # finite penalty (scipy's Wolfe search gives up on inf/nan).
-    BIG = 1e10
+    if optimizer == "device":
+        return _fit_device(bundle, val_grad, maxiter, compute_sdreport,
+                           fd_step, _gtol, lambda: n_evals)
 
-    def safe_fun(x):
-        v = eval_at(x)[0]
-        return v if np.isfinite(v) else BIG
-
-    def safe_jac(x):
-        v, g, _ = eval_at(x)
-        if not np.isfinite(v):
-            return np.zeros_like(g)
-        return np.where(np.isfinite(g), g, 0.0)
+    eval_at, safe_fun, safe_jac = _scipy_objective(val_grad, b_warm)
 
     t0 = time.time()
     total_nfev = total_njev = 0
@@ -235,11 +282,131 @@ def fit_model(
     return out
 
 
-def _sdreport(out, bundle, val_grad, fd_step):
+def _fit_device(bundle, val_grad, maxiter, compute_sdreport, fd_step,
+                gtol, host_evals):
+    """fit_model's "device" path (infer/fit.py:188-308 of the JAX
+    package): the L-BFGS loop, then on the device the slope probe, the
+    descent probes and the FD outer Hessian at h and h/10 (the first
+    sweep's non-finite rows from the second), read back in one copy; then
+    the terminal host polish where the JAX package runs one (inner
+    coefficients, or no convergence) and the sdreport."""
+    from scipy import optimize
+
+    from smoothsde_tpu_torch.infer.lbfgs import device_lbfgs
+
+    packer = bundle.packer
+    marginal = bundle.marginal  # made by make_val_grad
+    dtype, device = bundle.dtype, bundle.device
+    f32 = dtype == torch.float32
+    n_out = packer.n_outer
+
+    def tensor(a):
+        return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
+                               device=device)
+
+    t0 = time.time()
+    r = device_lbfgs(marginal, tensor(packer.outer_init()),
+                     tensor(packer.inner_init()), maxiter=maxiter)
+
+    def value_at(xp):
+        return marginal(xp, r.b)[0].detach()
+
+    def grad_at(xp):
+        with torch.enable_grad():
+            xg = xp.detach().requires_grad_(True)
+            return torch.autograd.grad(marginal(xg, r.b)[0], xg)[0]
+
+    # The convergence probes (the scipy path's, with its constants): the
+    # central-difference slope along g must reproduce |g|, or no descent
+    # step along -g may improve on the noise floor.
+    with torch.no_grad():
+        gnorm = torch.linalg.vector_norm(r.g)
+        u = r.g / torch.clamp(gnorm, min=1e-30)
+        h = 1e-2
+        slope = (value_at(r.x + h * u) - value_at(r.x - h * u)) / (2 * h)
+        slope_ok = slope.abs() < 0.3 * gnorm
+        noise = (1e-5 if f32 else 1e-10) * (1.0 + r.f.abs())
+        best = torch.minimum(torch.minimum(value_at(r.x - 1e-3 * u),
+                                           value_at(r.x - 1e-2 * u)),
+                             value_at(r.x - 3e-2 * u))
+        descent_ok = (r.f - best) <= noise
+    fuse_fd = compute_sdreport and n_out > 0
+    H_fd = torch.zeros(0, dtype=dtype, device=device)
+    if fuse_fd:
+        hs = fd_step * torch.clamp(r.x.abs(), min=1.0)
+        dh = torch.diag(hs)
+        pts = torch.cat([r.x + dh, r.x - dh, r.x + dh / 10, r.x - dh / 10])
+        G = torch.stack([grad_at(p) for p in pts])
+        H1 = (G[:n_out] - G[n_out:2 * n_out]) / (2.0 * hs[:, None])
+        H2 = (G[2 * n_out:3 * n_out] - G[3 * n_out:]) / (
+            2.0 * (hs / 10.0)[:, None])
+        bad = ~torch.isfinite(H1).all(dim=1, keepdim=True)
+        H_fd = torch.where(bad, H2, H1).reshape(-1)
+    # everything the host needs, in one copy
+    n_in = r.b.shape[0]
+    head = torch.stack([r.f, r.n_iter.to(dtype), r.n_evals.to(dtype),
+                        r.converged.to(dtype), slope_ok.to(dtype),
+                        descent_ok.to(dtype)])
+    vals = torch.cat([head, r.x, r.b, H_fd]).to("cpu", torch.float64)
+    vals = vals.numpy()
+    f_hat, n_iter, n_evals, conv, s_ok, d_ok = vals[:6]
+    x_hat = vals[6:6 + n_out]
+    b_hat = vals[6 + n_out:6 + n_out + n_in]
+    H = vals[6 + n_out + n_in:].reshape(n_out, n_out) if fuse_fd else None
+    via = ("optimizer" if conv else "slope_probe" if s_ok
+           else "descent_probe" if d_ok else "none")
+    n_iter, n_evals = int(n_iter), int(n_evals)
+    out = FitResult(
+        par=np.array(x_hat), par_names=packer.outer_names(),
+        value=float(f_hat), convergence=int(via == "none"),
+        counts={"function": n_evals + 5, "gradient": n_iter + 1,
+                "evals": n_evals + (4 * n_out if fuse_fd else 0),
+                "iterations": n_iter, "device_evals": n_evals},
+        systime=0.0, message=f"device L-BFGS: {n_iter} iterations",
+        bhat=np.array(b_hat), inner_names=packer.inner_names(),
+        convergence_via=via, optimizer="device", device_steps=r.steps,
+        device_graph=r.graph)
+    out.timings = {"device_lbfgs": time.time() - t0}
+    evals0 = host_evals()
+    if packer.n_inner > 0 or via == "none":
+        # the terminal host polish: a few BFGS iterations from the device
+        # iterate, the first inner solve warm-started at its bhat (the
+        # JAX package starts every one there)
+        t1 = time.time()
+        pol_at, pol_fun, pol_jac = _scipy_objective(val_grad, b_hat)
+        pol = optimize.minimize(
+            fun=pol_fun, x0=out.par, jac=pol_jac, method="BFGS",
+            options={"maxiter": 25, "gtol": gtol(out.value)})
+        out.counts["function"] += int(pol.nfev)
+        out.counts["gradient"] += int(getattr(pol, "njev", 0))
+        moved = float(pol.fun) < out.value - 1e-7 * (1.0 + abs(out.value))
+        if np.isfinite(pol.fun) and float(pol.fun) <= out.value:
+            if moved:
+                # the inner solve at the polished point, so bhat matches
+                # par; the device's FD Hessian is stale there
+                out.bhat = pol_at(pol.x)[2]
+                H = None
+            out.par = np.asarray(pol.x, float)
+            out.value = float(pol.fun)
+            if pol.success:
+                out.convergence = 0
+                out.convergence_via = "optimizer"
+        out.timings["device_polish"] = time.time() - t1
+    out.systime = time.time() - t0
+    if compute_sdreport:
+        t1 = time.time()
+        _sdreport(out, bundle, val_grad, fd_step, H_precomputed=H)
+        out.timings["sdreport"] = time.time() - t1
+    out.counts["evals"] += host_evals() - evals0
+    return out
+
+
+def _sdreport(out, bundle, val_grad, fd_step, H_precomputed=None):
     """Outer Hessian by central differences of the marginal's gradient,
     every inner solve warm-started at bhat (the reference's sdreport,
-    R/sde.R:702-704), and with inner coefficients the joint precision;
-    written onto `out`."""
+    R/sde.R:702-704), unless the device path's finite `H_precomputed`
+    is given, and with inner coefficients the joint precision; written
+    onto `out`."""
     packer = bundle.packer
     x_hat = np.asarray(out.par, float)
     b_hat = np.asarray(out.bhat, float)
@@ -255,13 +422,15 @@ def _sdreport(out, bundle, val_grad, fd_step):
             ])
             return (G[:n_out] - G[n_out:]) / (2.0 * hs[:, None])
 
-        hs = fd_step * np.maximum(1.0, np.abs(x_hat))
-        H = fd_hessian(hs)
-        # a perturbed point can land in a non-finite region; retry the
-        # offending coordinates with a 10x smaller step
-        bad = ~np.isfinite(H).all(axis=1)
-        if bad.any():
-            H[bad] = fd_hessian(hs / 10.0)[bad]
+        H = H_precomputed
+        if H is None or not np.isfinite(H).all():
+            hs = fd_step * np.maximum(1.0, np.abs(x_hat))
+            H = fd_hessian(hs)
+            # a perturbed point can land in a non-finite region; retry the
+            # offending coordinates with a 10x smaller step
+            bad = ~np.isfinite(H).all(axis=1)
+            if bad.any():
+                H[bad] = fd_hessian(hs / 10.0)[bad]
         out.H_marg = 0.5 * (H + H.T)
         out.cov_fixed = prec_to_cov(out.H_marg)
 

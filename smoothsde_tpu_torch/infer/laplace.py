@@ -169,10 +169,16 @@ def make_laplace(joint_nllk: Callable, packer,
     def tail(outer, b, W):
         """The cross derivatives d grad_b/d outer (k, n_outer) and the
         log-det partials in (outer, b), at (outer, b) with W = H_bb^{-1}
-        fixed."""
+        fixed. Both in forward mode over `grad_b`: a reverse pass over
+        H_bb would run through operations that the autograd engine
+        recorded on its CUDA device thread, and the engine orders those
+        among the caller's by per-thread sequence numbers, so the order
+        in which it sums their contributions, and with it the partials'
+        rounding, would follow the process's history (PERF.md §6)."""
         cross = jacfwd(grad_b, argnums=0)(outer, b)
-        g_o, g_b = grad(lambda o, bb: 0.5 * (W * hess_b(o, bb)).sum(),
-                        argnums=(0, 1))(outer, b)
+        half_W = 0.5 * W  # no Python float times a 0-d tensor under jvp
+        g_o, g_b = jacfwd(lambda o, bb: (half_W * hess_b(o, bb)).sum(),
+                          argnums=(0, 1))(outer, b)
         return cross, g_o, g_b
 
     graphs = {

@@ -26,6 +26,14 @@ columns optionally decay-modulated), and loglik one of:
     device the SoA filter with a plain scan, "blocked" from
     TWIN_SOA_MIN_STEPS steps and "associative" below (PERF.md §5).
 
+`kalman_impl` picks the state-space value route: "auto" and "soa" the
+fused kernels (their plain versions on the CPU), "sequential" the
+per-dim sequential filter (ops/kalman.py, objective.py:572-582 of the
+JAX package); "parallel" and "sqrt" wait for ROADMAP.md queue 1 item 5.
+The bundle's `loglik` is that route's unpenalized log-likelihood: under
+torch.no_grad on a CUDA model a value-only pass through the forward
+kernels (K1a, K2, K1b for CTCRW; D1a, K2, D1b for BM_SSM / OU_SSM).
+
 With random effects and no REML or pinned entries, p_re >= 16 inner
 coefficients get a colored Hessian plan (infer/coloring.py). Everything
 outside this (user H or P0; ESEAL_SSM; a mesh) raises
@@ -76,6 +84,13 @@ _ROADMAP = {
                "ESEAL_SSM)",
     "sharding": "queue 1 item 6 (sharding)",
 }
+
+# setup(kalman_impl=...) choices: "auto" runs the fused kernels,
+# "sequential" the per-dim sequential filter; "soa" is the JAX package's
+# name for the route "auto" takes here; the rest are not ported
+KALMAN_IMPLS = ("auto", "sequential")
+IMPL_ALIASES = {"soa": "auto"}
+UNPORTED_IMPLS = ("parallel", "sqrt")
 
 
 def unported(what: str, item: str):
@@ -146,6 +161,8 @@ class ObjectiveBundle:
     hess_plan: Optional[dict] = None  # colored inner-Hessian plan
     twin: str = ""  # the twin's route (`twin_route`), state-space only
     marginal: Optional[Callable] = None  # the Laplace marginal, made once
+    # the unpenalized log-likelihood on the value route (`kalman_impl`)
+    loglik: Optional[Callable] = None
 
 
 def build_objective(
@@ -159,6 +176,7 @@ def build_objective(
     init: Optional[Dict[str, np.ndarray]] = None,
     map_fix: Optional[Dict[str, np.ndarray]] = None,
     reml: bool = False,
+    kalman_impl: str = "auto",
     *,
     dtype: torch.dtype = torch.float32,
     device="cuda",
@@ -168,6 +186,11 @@ def build_objective(
     init = dict(init or {})
     map_fix = dict(map_fix or {})
     check_slice(spec, other_data)
+    kalman_impl = IMPL_ALIASES.get(kalman_impl, kalman_impl)
+    if kalman_impl not in KALMAN_IMPLS + UNPORTED_IMPLS:
+        raise ValueError(f"unknown kalman_impl {kalman_impl!r}")
+    if spec.kind == "ssm" and kalman_impl in UNPORTED_IMPLS:
+        raise unported(f"kalman_impl={kalman_impl!r}", "generic")
     device = resolve_device(device)
     n, n_dim = obs.shape
     param_names = list(spec.param_names)
@@ -211,13 +234,22 @@ def build_objective(
         data = prepare_diag_data(spec.type, obs, times, ids, dtype=dtype,
                                  device=device)
     twin = "" if closed_form else twin_route(device, n)
-    if twin == "track":
+    sequential = not closed_form and kalman_impl == "sequential"
+    if twin == "track" or sequential:
         # the sequential filter's own copy of the data and its host plan,
         # made once outside every transform
         obs_t = dev(obs)
         ids_t = torch.as_tensor(np.asarray(ids), device=device)
         dt_t = dev(precompute_dt(times, ids))
         track_plan = track_pad_plan(ids, device=device)
+
+    def perdim_steps(full, sobs):
+        pm = par_matrix(full)
+        if spec.type == "CTCRW":
+            return ctcrw_steps_perdim(pm, obs_t, None, ids_t, sigma_obs=sobs,
+                                      dt=dt_t)
+        return diag_ssm_steps_perdim(spec.type, pm, obs_t, None, ids_t,
+                                     sigma_obs=sobs, dt=dt_t)
 
     # ---- decay-modulated splines (closed-form models only,
     #      R/sde.R:634-653, nllk_sde.hpp:47-58) ----
@@ -346,6 +378,8 @@ def build_objective(
     else:
         def loglik(full):
             sobs = torch.exp(full["log_sigma_obs"][0])
+            if sequential:
+                return kalman_loglik_batched(perdim_steps(full, sobs))
             if spec.type == "CTCRW":
                 return ctcrw_loglik_soa(
                     par_matrix(full), None, None, None, sigma_obs=sobs,
@@ -369,12 +403,7 @@ def build_objective(
                 return diag_ssm_loglik_soa(spec.type, pm, None, None, None,
                                            sigma_obs=sobs, scan=twin,
                                            data=data)
-            if spec.type == "CTCRW":
-                steps = ctcrw_steps_perdim(pm, obs_t, None, ids_t,
-                                           sigma_obs=sobs, dt=dt_t)
-            else:
-                steps = diag_ssm_steps_perdim(spec.type, pm, obs_t, None,
-                                              ids_t, sigma_obs=sobs, dt=dt_t)
+            steps = perdim_steps(full, sobs)
             if track_plan is not None:
                 steps = batch_steps_by_track(steps, *track_plan)
             return kalman_loglik_batched(steps)
@@ -433,4 +462,5 @@ def build_objective(
         joint_nllk_ad_flat=joint_nllk_ad,
         hess_plan=hess_plan,
         twin=twin,
+        loglik=loglik,
     )

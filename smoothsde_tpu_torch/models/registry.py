@@ -152,3 +152,41 @@ def get_model_spec(type: str, n_dim: int = 1) -> ModelSpec:
         extra_params=extra,
         multidim=type not in ("BM_t", "ESEAL_SSM"),
     )
+
+
+def model_eqn(type: str) -> str:
+    """Equation string for printing, mirroring R/sde.R:1676-1698."""
+    eqns = {
+        "BM": "    dZ(t) = mu dt + sigma dW(t)",
+        "BM_SSM": (
+            "    dY(t) = mu dt + sigma dW(t)\n"
+            "    Z(i) ~ N(Y(i), sigma_obs^2)"
+        ),
+        "BM_t": "    Brownian motion with t-distributed noise",
+        "OU": (
+            "    dZ(t) = beta (mu - Z(t)) dt + sigma dW(t)\n"
+            "Parameterised in terms of:\n"
+            "* tau = 1/beta\n"
+            "* kappa = sigma^2/(2*beta)"
+        ),
+        "OU_SSM": (
+            "    dZ(t) = beta (mu - Z(t)) dt + sigma dW(t)\n"
+            "    Z(i) ~ N(Y(i), sigma_obs^2)\n"
+            "Parameterised in terms of:\n"
+            "* tau = 1/beta\n"
+            "* kappa = sigma^2/(2*beta)"
+        ),
+        "CIR": "    dZ(t) = beta (mu - Z(t)) dt + sigma sqrt(Z(t)) dW(t)",
+        "CTCRW": (
+            "    dV(t) = beta (mu - V(t)) dt + sigma dW(t)\n"
+            "    dZ(t) = V(t) dt\n"
+            "Parameterised in terms of:\n"
+            "* tau = 1/beta\n"
+            "* nu = sqrt(pi/beta)*sigma/2"
+        ),
+        "ESEAL_SSM": (
+            "    dL(t) = mu dt + sigma dW(t)\n"
+            "    Z(i) ~ N(a1 + a2 L(i)/R(i), tau^2/h(i))"
+        ),
+    }
+    return eqns[type]

@@ -161,17 +161,41 @@ def test_bhat_lambda_and_decay_match_jax(fits):
 
 def test_par_matches_jax(fits):
     """Response-scale parameters at every row, the random-effect part
-    and (for the decay model) its decay included, at each package's own
-    estimates."""
+    included, at each package's own estimates: `js.par` itself, for the
+    decay model too (both packages, as the reference, evaluate `par`
+    with make_mat's X_re, the decay-modulated columns unscaled)."""
     js, _, ps, _ = fits
-    if js.other_data().get("t_decay") is None:
-        want = js.par(t="all")
-    else:
-        lp = js.mats()["X_fe"] @ js.coeff_fe() + js.X_re_decay() @ \
-            js.coeff_re()
-        lp = lp.reshape(2, -1).T
-        want = np.column_stack([lp[:, 0], np.exp(lp[:, 1])])
-    np.testing.assert_allclose(ps.par(t="all"), want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(ps.par(t="all"), js.par(t="all"), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_par_on_a_decay_model_matches_jax_at_a_moderate_rate():
+    """At a moderate decay rate set through update_rho, with the same
+    coefficients in both packages, the decayed linear predictor differs
+    from the undecayed one by more than 1e-3, and the port's `par`
+    equals the JAX package's (the undecayed form) to 1e-12."""
+    kw = _decay()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        js = JaxSDE(**kw)
+    ps = SDE(**kw, device="cpu", dtype=F64)
+    rng = np.random.default_rng(4)
+    cfe = rng.normal(size=len(js.coeff_fe()))
+    cre = rng.normal(size=len(js.coeff_re()))
+    for m in (js, ps):
+        m.update_coeff_fe(cfe)
+        m.update_coeff_re(cre)
+        m.update_rho([0.05])
+    X_fe = js.mats()["X_fe"]
+    decayed = X_fe @ cfe + js.X_re_decay() @ cre
+    undecayed = X_fe @ cfe + js.mats()["X_re"] @ cre
+    assert np.max(np.abs(decayed - undecayed)) > 1e-3
+    np.testing.assert_allclose(ps.X_re_decay(), js.X_re_decay(), rtol=0,
+                               atol=1e-12)
+    for resp in (True, False):
+        np.testing.assert_allclose(ps.par(t="all", resp=resp),
+                                   js.par(t="all", resp=resp), rtol=1e-12,
+                                   atol=1e-12)
 
 
 def test_from_reference_reproduces_joint_and_marginal(fits):

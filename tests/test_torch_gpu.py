@@ -1,9 +1,11 @@
 """CUDA kernels of smoothsde_tpu_torch against their plain PyTorch
 versions on the card: the CTCRW kernels (par-space and element-space),
 the cross-block prefix K2 alone, the phase-1 scan K8, the scalar-state
-(BM_SSM / OU_SSM) ones, the launcher's argument checks, and the
-closed-form objective on the card against the CPU. Every test that needs
-the card is marked `gpu` and skips without a CUDA device. This file
+(BM_SSM / OU_SSM) ones, the launcher's argument checks, the
+closed-form objective on the card against the CPU, the device L-BFGS on
+the card against the CPU, and the bundle's value-only log-likelihood
+through the forward kernels against the forward-mode twin. Every test
+that needs the card is marked `gpu` and skips without a CUDA device. This file
 imports neither jax nor the JAX package, so it also runs where jax is
 not installed:
 
@@ -662,3 +664,110 @@ def test_twin_matches_kernels_200k(cuda, typ):
     assert tv == pytest.approx(kv, rel=1e-10)
     np.testing.assert_allclose(tg, kg, rtol=0,
                                atol=1e-8 * np.max(np.abs(kg)))
+
+
+@pytest.mark.gpu
+def test_device_lbfgs_on_card_matches_cpu(cuda):
+    """The L-BFGS with its state on the device at config 1's shape (BM,
+    n = 1,000, f64, no inner coefficients): on the card, each step a
+    CUDA graph, against the same run on the CPU: x within 1e-8, f within
+    1e-12 relative, the same iterations and evaluations."""
+    import chip_smoke
+    from smoothsde_tpu_torch import SDE
+    from smoothsde_tpu_torch.infer.fit import make_val_grad
+    from smoothsde_tpu_torch.infer.lbfgs import device_lbfgs
+
+    kw, _ = chip_smoke.config1()
+    out = {}
+    for device in ("cuda", "cpu"):
+        bundle = SDE(**kw, device=device, dtype=torch.float64).bundle()
+        make_val_grad(bundle)  # the bundle's marginal
+        x0 = torch.tensor(bundle.packer.outer_init(), device=device)
+        out[device] = device_lbfgs(bundle.marginal, x0, x0.new_zeros(0))
+    gpu, cpu = out["cuda"], out["cpu"]
+    assert gpu.graph == "graph" and cpu.graph == "eager"
+    assert bool(gpu.converged) and bool(cpu.converged)
+    np.testing.assert_allclose(gpu.x.cpu().numpy(), cpu.x.numpy(), rtol=0,
+                               atol=1e-8)
+    assert float(gpu.f) == pytest.approx(float(cpu.f), rel=1e-12)
+    assert int(gpu.n_iter) == int(cpu.n_iter)
+    assert int(gpu.n_evals) == int(cpu.n_evals)
+    assert gpu.steps == int(gpu.n_evals) - 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("typ", ["CTCRW", "OU_SSM", "BM_SSM"])
+def test_loglik_through_kernels_matches_twin(cuda, typ):
+    """`bundle.loglik` (what `SDE.log_lik` reads) on the card is a
+    value-only pass through the forward kernels (K1a, K2, K1b for CTCRW
+    at config 4 with its random effect; D1a, K2, D1b for the diagonal
+    models at 20,001 steps) and equals -joint_nllk_unpenalized through
+    the forward-mode twin to 1e-10 relative, f64."""
+    import chip_smoke
+    from smoothsde_tpu_torch import SDE
+
+    if typ == "CTCRW":
+        kw, _ = chip_smoke.config4()
+        forward = ("ctcrw_filter_totals", "block_prefix_filter",
+                   "ctcrw_filter_scan")
+    else:
+        obs, times, ids, _ = _diag_data(typ, 2, 20001, 12)
+        kw = dict(data={"ID": ids, "time": times, "y1": obs[:, 0],
+                        "y2": obs[:, 1]}, type=typ, response=["y1", "y2"])
+        forward = ("diag_filter_totals", "block_prefix_diag_filter",
+                   "diag_filter_scan")
+    bundle = SDE(**kw, device="cuda", dtype=torch.float64).bundle()
+    rng = np.random.default_rng(3)
+    outer = torch.tensor(bundle.packer.outer_init(), device=cuda)
+    inner = torch.tensor(0.1 * rng.normal(size=bundle.packer.n_inner),
+                         device=cuda)
+    full = bundle.packer.unpack(outer, inner)
+    cf.reset_launches()
+    with torch.no_grad():
+        v = float(bundle.loglik(full))
+    assert [cf.LAUNCHES[k] for k in forward] == [1, 1, 1]
+    assert sum(cf.LAUNCHES.values()) == 3  # no backward kernel
+    with torch.no_grad():
+        twin = -float(bundle.joint_nllk_unpenalized(full))
+    assert v == pytest.approx(twin, rel=1e-10)
+
+
+@pytest.mark.gpu
+def test_laplace_log_det_partials_do_not_follow_history(cuda):
+    """The Laplace layer's cross derivatives and log-det partials
+    (`tail`, taken by jacfwd) at config 4 on the card: in f32 the same
+    bits on every call, before and after reverse-mode passes over the
+    inner Hessian (which the autograd engine orders by per-thread
+    sequence numbers); in f64 equal to those reverse-mode partials to
+    1e-10 of the largest."""
+    import chip_smoke
+    from torch.func import grad
+
+    from smoothsde_tpu_torch import SDE
+    from smoothsde_tpu_torch.infer.fit import make_val_grad
+    from smoothsde_tpu_torch.twin_bench import X_OPT
+
+    kw, _ = chip_smoke.config4()
+    for dtype in (torch.float32, torch.float64):
+        bundle = SDE(**kw, device="cuda", dtype=dtype).bundle()
+        make_val_grad(bundle)
+        graphs = bundle.marginal.graphs
+        tail, hess = graphs["tail"].fn, graphs["hess"].fn
+        x = torch.tensor(X_OPT, dtype=dtype, device=cuda)
+        b = torch.full((bundle.packer.n_inner,), 0.1, dtype=dtype,
+                       device=cuda)
+        W = torch.linalg.inv(hess(x, b))
+
+        def reverse():
+            return grad(lambda o, bb: (0.5 * W * hess(o, bb)).sum(),
+                        argnums=(0, 1))(x, b)
+
+        first = tail(x, b, W)
+        rev = reverse()
+        again = tail(x, b, W)
+        for a, c in zip(first, again):
+            assert torch.equal(a, c)
+        if dtype == torch.float64:
+            for a, r in zip(first[1:], rev):
+                scale = float(r.abs().max())
+                assert float((a - r).abs().max()) <= 1e-10 * scale

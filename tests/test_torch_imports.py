@@ -46,3 +46,34 @@ def test_no_jax_and_lazy_extensions(path):
                 assert not (name == lazy or name.startswith(lazy + ".")), (
                     f"{path}: module-level import of {name}"
                 )
+
+
+# the API tail's modules: NumPy copies of the JAX package's (grids,
+# simulate, plots) and the device optimizer
+API_TAIL = ("utils/grids.py", "api/simulate.py", "api/plots.py",
+            "infer/lbfgs.py")
+
+
+@pytest.mark.parametrize("rel", API_TAIL)
+def test_api_tail_modules_are_guarded(rel):
+    assert PKG / rel in FILES
+
+
+def test_api_tail_modules_load_neither_jax_nor_the_jax_package():
+    """Importing the new modules (and the SDE that uses them) in a fresh
+    interpreter loads no module of jax, jaxlib or smoothsde_tpu."""
+    import subprocess
+    import sys
+
+    mods = ["smoothsde_tpu_torch." + r[:-3].replace("/", ".")
+            for r in API_TAIL] + ["smoothsde_tpu_torch.api.sde"]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "roots = ('jax', 'jaxlib', 'smoothsde_tpu')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in roots)\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   cwd=str(PKG.parent))
