@@ -105,6 +105,35 @@ non-zero before the final line:
      within 5%, the final nllk within 1e-4 relative of the scipy fits of
      3 and 3g, 5a's steps a graph; prints walls, iterations, evaluations,
      kernel launches and host reads per iteration, the idle share;
+     3n. the square-root filter at config 5a: the f32 fit with
+     setup(kalman_impl="sqrt") (convergence, tau and nu within 5%, nllk
+     within 1e-4 relative of phase 3's); at 3e's audit point
+     `ctcrw_loglik_sqrt` f32 value + gradient against f64 (1e-4 /
+     1e-4 of |nllk|, printed beside docs/ACCURACY.md's "f32 sqrt (tpu)"
+     column); scan="pallas" (K8 and K2 `sqrt2` / `sqrt1` / Elem5)
+     against "blocked" for `ctcrw_loglik_sqrt` at 5a and
+     `diag_ssm_loglik_sqrt` / `diag_ssm_loglik_soa` at 3b's OU_SSM (f64
+     1e-10, f32 1e-4 relative), each kernel launched, and a gradient
+     through "pallas" raises;
+     3o. user H: config 5a's latent path with a per-row Argos-style H
+     (seed 15), fitted in f32 and f64 by the parallel full-state filter
+     ("auto"); gates convergence, the f64 fit's tau and nu within 5% (the
+     f32 fit's printed: the JAX package's f32 stopping rule ends it
+     early, PERF.md), f32 nllk and gradient against f64 at the f32
+     optimum (1e-4 / 1e-4 of |nllk|); `filtered_states()` and
+     `residuals()` on it and on phase 3's fit, f32 against f64, finite
+     exactly where the JAX package gives finite (the states within 1e-3
+     of the largest, the residuals within 0.1 absolute, a tenth of their
+     N(0, 1) scale); prints each call's wall;
+     3p. ESEAL_SSM, 16 tracks x 1,000 dives of tests/test_models_fit.py
+     `_eseal_sim`'s model (per-track seeds, h and R varying by dive),
+     f32, a1 / log_a2 pinned: with priors=None mu, sigma, tau at
+     TestESEAL.test_recovery's bars; with the default priors convergence
+     and the f32 nllk within 1e-4 of f64's;
+     2f. (run after 2e) K8 alone for the scalar-state and square-root
+     kinds (diag_filter, diag_smooth, sqrt2, sqrt1), both directions,
+     d in {1, 2, 3}, lanes around its 128-thread block: f64 within 1e-10
+     and f32 within 1e-4 of the scale;
   4. each kernel against its plain version at its fit's shapes (the
      diag kernels at both the OU_SSM and the BM_SSM fit's, the
      element-space kernels and K8 at config 5a's; f64, max abs error
@@ -187,7 +216,24 @@ ELEM_PATH = {
     "pallas": ("phase1_scan_filter", "block_prefix_filter",
                "phase1_scan_smooth", "block_prefix_smooth"),
 }
-KERNELS = CTCRW_KERNELS + DIAG_KERNELS + ELEM_KERNELS
+PREFIX_SRC = "smoothsde_tpu_torch/csrc/block_prefix.cu"
+# the instantiations of K8 and K2 the generic and special filters add
+# (the scalar-state and square-root elements)
+SLICE_KERNELS = [
+    ("phase1_scan_diag_filter", PHASE1_SRC, f"{SCAN_TPU_KERNEL}:81"),
+    ("phase1_scan_diag_smooth", PHASE1_SRC, f"{SCAN_TPU_KERNEL}:81"),
+    ("phase1_scan_sqrt2", PHASE1_SRC, f"{SCAN_TPU_KERNEL}:81"),
+    ("phase1_scan_sqrt1", PHASE1_SRC, f"{SCAN_TPU_KERNEL}:81"),
+    ("block_prefix_sqrt2", PREFIX_SRC, f"{TPU_KERNEL}:294"),
+    ("block_prefix_sqrt1", PREFIX_SRC, f"{TPU_KERNEL}:294"),
+]
+# the kernels of each "pallas" path of phase 3n (value only)
+SLICE_PATH = {
+    "ctcrw_sqrt": ("phase1_scan_sqrt2", "block_prefix_sqrt2"),
+    "ou_sqrt": ("phase1_scan_sqrt1", "block_prefix_sqrt1"),
+    "ou_soa": ("phase1_scan_diag_filter", "block_prefix_diag_filter"),
+}
+KERNELS = CTCRW_KERNELS + DIAG_KERNELS + ELEM_KERNELS + SLICE_KERNELS
 P0_DIAG = 10.0
 # What each kernel's function must move and compute, counted from
 # csrc/ (each source's head note): values per lane-step (stack rows and
@@ -216,6 +262,12 @@ TRAFFIC = {
     "elem_score_scan": (25, 10, 250, 0),
     "phase1_scan_filter": (28, 0, 150, 0),
     "phase1_scan_smooth": (18, 0, 50, 0),
+    "phase1_scan_diag_filter": (10, 0, 15, 0),
+    "phase1_scan_diag_smooth": (6, 0, 5, 0),
+    "phase1_scan_sqrt2": (28, 0, 250, 0),
+    "phase1_scan_sqrt1": (10, 0, 20, 0),
+    "block_prefix_sqrt2": (0, 28, 0, 250),
+    "block_prefix_sqrt1": (0, 10, 0, 20),
 }
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s, f32 flop/s
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
@@ -268,17 +320,18 @@ def two_track_data(d, n, seed):
     return obs, times, ids, par
 
 
-def config5a(n=1_000_000):
+def config5a(n=1_000_000, sobs=0.1):
     """The 1M-step 2-D CTCRW of the JAX package's benchmark config 5a:
     exact simulation, velocity AR(1) by lfilter, dt = 0.1, tau = 3,
-    nu = 1, sigma_obs = 0.1, seed 5."""
+    nu = 1, sigma_obs = 0.1, seed 5 (sobs=0: the same latent path
+    without observation noise)."""
     from scipy.signal import lfilter
 
     from smoothsde_tpu_torch.utils.misc import ctcrw_cov
 
     rng = np.random.default_rng(5)
     dt = 0.1
-    tau_t, nu_t, sobs = 3.0, 1.0, 0.1
+    tau_t, nu_t = 3.0, 1.0
     beta = 1 / tau_t
     sigma = 2 * nu_t / np.sqrt(np.pi * tau_t)
     e = np.exp(-beta * dt)
@@ -574,13 +627,22 @@ def kernel_of(key):
     per-lane kernels by name, diag and elem first (the CTCRW names are
     substrings of theirs)."""
     if "phase1_scan_kernel" in key:
-        return ("phase1_scan_filter" if "Elem14" in key
-                else "phase1_scan_smooth" if "Smooth9" in key else None)
+        for elem, name in (("Elem14", "phase1_scan_filter"),
+                           ("Smooth9", "phase1_scan_smooth"),
+                           ("Elem5", "phase1_scan_diag_filter"),
+                           ("Smooth3", "phase1_scan_diag_smooth"),
+                           ("Sqrt14", "phase1_scan_sqrt2"),
+                           ("Sqrt5", "phase1_scan_sqrt1")):
+            if elem in key:
+                return name
+        return None
     if "block_prefix_" in key:  # K2's reduce, carry and rescan kernels
         for elem, name in (("Elem14", "block_prefix_filter"),
                            ("Smooth9", "block_prefix_smooth"),
                            ("Elem5", "block_prefix_diag_filter"),
-                           ("Smooth3", "block_prefix_diag_smooth")):
+                           ("Smooth3", "block_prefix_diag_smooth"),
+                           ("Sqrt14", "block_prefix_sqrt2"),
+                           ("Sqrt5", "block_prefix_sqrt1")):
             if elem in key:
                 return name
         return None
@@ -748,20 +810,68 @@ def phase_kernels_vs_plain(torch, variants, prepare, n_extra=2):
 
 
 K2_KINDS = [(kind, rev) for kind in ("filter", "smooth", "diag_filter",
-                                     "diag_smooth") for rev in (False, True)]
-# each K2 instantiation's scan direction on the fits' paths
+                                     "diag_smooth", "sqrt2", "sqrt1")
+            for rev in (False, True)]
+# each K2 instantiation's scan direction on the fits' paths (the
+# square-root ones on phase 3n's "pallas" scans)
 K2_PATH = {"block_prefix_filter": ("filter", False),
            "block_prefix_smooth": ("smooth", True),
            "block_prefix_diag_filter": ("diag_filter", False),
-           "block_prefix_diag_smooth": ("diag_smooth", True)}
+           "block_prefix_diag_smooth": ("diag_smooth", True),
+           "block_prefix_sqrt2": ("sqrt2", False),
+           "block_prefix_sqrt1": ("sqrt1", False)}
+
+
+def elem_stack(torch, kind, elem, p):
+    """The (L, C, lanes) stack of an element pytree (leaves (n,) or
+    (d, n)) of ELEMS kind `kind`, identity-padded, as
+    blocked_associative_scan lays it out."""
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+
+    k = cf.ELEMS[kind]
+    x = torch.stack([v.expand(p.d, p.n) for v in k.pack(elem)])
+    return cf.pad_to_lanes(x, k.id_vals, p)
+
+
+def slice_elements(torch, typ, par, sobs, obs=None, times=None, ids=None,
+                   data=None):
+    """The elements of the generic and special filters' new K8 / K2
+    kinds at the parameter matrix `par` (a tensor on the card), from
+    obs / times / ids or from the likelihood's prepared `data`:
+    {"sqrt2": CTCRW square-root elements} or, for OU_SSM,
+    {"diag_filter", "diag_smooth", "sqrt1"} (the smoothing elements from
+    the plain filtered moments)."""
+    from smoothsde_tpu_torch.ops import diag_fused as df
+    from smoothsde_tpu_torch.ops import kalman_sqrt as ks
+    from smoothsde_tpu_torch.ops.kalman_soa import (
+        _ID1,
+        _comb1,
+        _ctcrw_system,
+        _scan_elements,
+        _shift_back,
+    )
+
+    if typ == "CTCRW":
+        sys = elem_system(par, sobs, data) if data is not None else \
+            _ctcrw_system(par, obs, times, ids, sobs, P0_POS, P0_VEL)
+        return {"sqrt2": ks._build_sqrt_elements(sys)}
+    sysd = df.diag_system(typ, par, obs, times, ids, sobs, data=data)
+    filt = df.diag_elements(sysd)
+    _, bf, Cf, _, _ = _scan_elements(_comb1, _ID1, filt, "blocked")
+    te = _shift_back(sysd.resetf, 1.0)
+    sm, _ = df._smooth_elem1(_shift_back(sysd.t, 1.0), _shift_back(sysd.q),
+                             _shift_back(sysd.c), bf, Cf, te)
+    return {"diag_filter": filt, "diag_smooth": sm,
+            "sqrt1": ks._build_sqrt_elements1(sysd)}
 
 
 def k2_totals(torch):
-    """Real per-block totals of the four element kinds, f64 on the card:
-    the plain K1a / K3a / D1a / D3a chains over two_track_data (d = 2,
-    2,048 lanes)."""
+    """Real per-block totals of the six element kinds, f64 on the card:
+    the plain K1a / K3a / D1a / D3a chains and the plain phase-1 scan of
+    the square-root elements over two_track_data (d = 2, 2,048 lanes)."""
     from smoothsde_tpu_torch.ops import ctcrw_fused as cf
     from smoothsde_tpu_torch.ops import diag_fused as df
+    from smoothsde_tpu_torch.ops import scan_utils as su
     from smoothsde_tpu_torch.ops.kalman_soa import prepare_ctcrw_data
 
     dev = torch.device("cuda")
@@ -783,10 +893,15 @@ def k2_totals(torch):
     dtot = df.diag_filter_totals_plain(fwd, h, P0_DIAG)
     dpre = cf.block_prefix_plain(dtot, 2, "diag_filter", False)
     dmom, _ = df.diag_filter_scan_plain(fwd, dpre, h, P0_DIAG)
+    sq = {**slice_elements(torch, "CTCRW", pt, 0.1, obs, times, ids),
+          **slice_elements(torch, "OU_SSM", pt, 0.1, obs, times, ids)}
     return {"filter": ftot, "smooth": cf.smooth_totals_plain(stack, mom),
             "diag_filter": dtot,
             "diag_smooth": df.diag_smooth_totals_plain(
-                df.backward_stack(*rows), dmom)}
+                df.backward_stack(*rows), dmom),
+            **{k: su.pallas_phase1_scan_plain(
+                elem_stack(torch, k, sq[k], p), k)[-1].contiguous()
+               for k in ("sqrt2", "sqrt1")}}
 
 
 def cycled(tot, d, nb, torch):
@@ -796,8 +911,8 @@ def cycled(tot, d, nb, torch):
 
 
 def phase_k2(torch):
-    """Phase 2b: K2 alone against its plain version on the card, every
-    element kind in both directions, d in {1, 2, 3}, NB around its tile
+    """Phase 2b: K2 alone against its plain version on the card, all six
+    element kinds in both directions, d in {1, 2, 3}, NB around its tile
     (1, T - 1, T, T + 1, 3T + 5) and config 5a's 31,250: f64 within 1e-10
     of the output's scale, f32 against the f64 plain version within 1e-5.
     Then each instantiation's time, in its direction on the fits' paths,
@@ -1030,12 +1145,8 @@ def phase_audit(torch):
     )
 
     dev = torch.device("cuda")
-    n = 1_000_000
-    rng = np.random.default_rng(0)
-    times = np.cumsum(rng.uniform(0.4, 0.6, size=n))
-    obs = np.cumsum(rng.normal(size=(n, 2)) * 0.3, axis=0)
-    ids = np.zeros(n, np.int32)
-    theta0 = [0.05, -0.02, np.log(2.0), np.log(1.0)]
+    obs, times, ids, theta0 = audit_data()
+    n = len(ids)
     res = {}
     cf.reset_launches()
     for dtype in (torch.float32, torch.float64):
@@ -2065,6 +2176,515 @@ def elem_kernel_checks(torch, b32, b64, d32, d64, x):
     return out, times
 
 
+
+# ---------------------------------------------------------------------------
+# the generic and special filters: phases 2f, 3n, 3o, 3p and their part
+# of phase 4
+# ---------------------------------------------------------------------------
+
+K8_KINDS = ("diag_filter", "diag_smooth", "sqrt2", "sqrt1")
+# lanes below, at and across K8's 128-thread CUDA block for d = 1 (n / 32
+# lanes), and a ragged n
+K8_NS = (80, 4_064, 4_096, 4_128, 20_001)
+
+
+def phase_k8(torch):
+    """Phase 2f: K8 alone against its plain version on the card for the
+    scalar-state and square-root kinds, both directions, d in {1, 2, 3},
+    n in K8_NS, on real elements (slice_elements over two_track_data):
+    f64 within 1e-10 of the output's scale, f32 (against the f64 plain
+    version) within 1e-4. Launch counts from zero over the phase (the
+    scalar smoothing kind has no fit path: this is its path). Returns
+    ({kind: worst errors}, launches)."""
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+    from smoothsde_tpu_torch.ops import scan_utils as su
+
+    dev = torch.device("cuda")
+    worst = {f"{k} reverse={r}": {"f64": 0.0, "f32": 0.0}
+             for k in K8_KINDS for r in (False, True)}
+    cf.reset_launches()
+    for d in (1, 2, 3):
+        for n in K8_NS:
+            obs, times, ids, par = two_track_data(d, n, seed=70 + d)
+            pt = torch.tensor(par, device=dev)
+            els = {**slice_elements(torch, "CTCRW", pt, 0.2, obs, times,
+                                    ids),
+                   **slice_elements(torch, "OU_SSM", pt, 0.2, obs, times,
+                                    ids)}
+            p = cf.plan(d, n)
+            for kind in K8_KINDS:
+                st = elem_stack(torch, kind, els[kind], p)
+                for rev in (False, True):
+                    ref = su.pallas_phase1_scan_plain(st, kind, rev)
+                    got = su.pallas_phase1_scan(st, kind, rev)
+                    got32 = su.pallas_phase1_scan(st.float(), kind, rev)
+                    where = f"K8 {kind} reverse={rev} d={d} n={n}"
+                    check(bool(torch.isfinite(got).all())
+                          and bool(torch.isfinite(got32).all()),
+                          f"{where}: non-finite")
+                    scale = max(1.0, float(ref.abs().max()))
+                    e64 = float((got - ref).abs().max()) / scale
+                    e32 = float((got32.double() - ref).abs().max()) / scale
+                    check(e64 <= 1e-10, f"{where}: f64 vs plain {e64:.3e}")
+                    check(e32 <= 1e-4, f"{where}: f32 vs f64 plain {e32:.3e}")
+                    w = worst[f"{kind} reverse={rev}"]
+                    w["f64"], w["f32"] = max(w["f64"], e64), max(w["f32"],
+                                                                 e32)
+    launches = dict(cf.LAUNCHES)
+    for kind in K8_KINDS:
+        check(launches[f"phase1_scan_{kind}"] > 0,
+              f"2f: K8 {kind} never launched")
+    log(f"[2f] worst error over the output's scale: {json.dumps(worst)}")
+    return worst, launches
+
+
+def audit_data():
+    """tools/accuracy_audit.py's 1M-step audit point, regenerated: (obs,
+    times, ids, theta0)."""
+    n = 1_000_000
+    rng = np.random.default_rng(0)
+    times = np.cumsum(rng.uniform(0.4, 0.6, size=n))
+    obs = np.cumsum(rng.normal(size=(n, 2)) * 0.3, axis=0)
+    return obs, times, np.zeros(n, np.int32), \
+        [0.05, -0.02, np.log(2.0), np.log(1.0)]
+
+
+def at_point(torch, bundle, x):
+    """(par_matrix, sigma_obs) of a bundle at outer x, no gradient."""
+    with torch.no_grad():
+        full = bundle.packer.unpack(torch.tensor(
+            x, dtype=bundle.dtype, device=bundle.device))
+        return bundle.par_matrix(full), torch.exp(full["log_sigma_obs"][0])
+
+
+def phase_sqrt(torch, card, data5a, res5a, d32, d64, b32, b64, ou):
+    """Phase 3n: the square-root filter at config 5a. (a) the f32 fit with
+    setup(kalman_impl="sqrt") ("blocked" plain scan, autograd): gates
+    convergence, tau and nu within 5%, nllk within 1e-4 relative of phase
+    3's fused fit; (b) at 3e's audit point `ctcrw_loglik_sqrt` value +
+    gradient in f32 against the f64 plain version on the card (nllk
+    1e-4 relative, gradient 1e-4 of |nllk|), printed beside
+    docs/ACCURACY.md's "f32 sqrt (tpu)" column; (c) scan="pallas" (K8 and
+    K2 `sqrt2` / `sqrt1` / Elem5) against "blocked" for
+    `ctcrw_loglik_sqrt` at the 5a optimum and `diag_ssm_loglik_sqrt` and
+    `diag_ssm_loglik_soa` at 3b's OU_SSM optimum, f64 within 1e-10
+    relative, f32 within 1e-4, launch counts from zero over the pallas
+    calls (the path). Returns (summary, launches)."""
+    from smoothsde_tpu_torch import SDE
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+    from smoothsde_tpu_torch.ops.kalman_soa import (
+        diag_ssm_loglik_soa,
+        prepare_ctcrw_data,
+    )
+    from smoothsde_tpu_torch.ops.kalman_sqrt import (
+        ctcrw_loglik_sqrt,
+        diag_ssm_loglik_sqrt,
+    )
+
+    dev = torch.device("cuda")
+    out = {"card": card}
+    # (a) the fit
+    cf.reset_launches()
+    t = time.time()
+    sde = SDE(data=data5a, type="CTCRW", response=["y1", "y2"],
+              par0=[0, 0, 2, 0.8], device="cuda")
+    sde.setup(kalman_impl="sqrt")
+    res = sde.fit()
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    tau, nu = (float(v) for v in sde.par(t=0)[0, 2:4])
+    e_v = abs(res.value - res5a.value) / abs(res5a.value)
+    out["fit"] = {"wall_s": wall, "evals": res.counts["evals"],
+                  "bfgs": res.counts, "via": res.convergence_via,
+                  "tau": tau, "nu": nu, "nllk": res.value,
+                  "nllk_rel_to_fused_fit": e_v,
+                  "kernel_launches": {k: v for k, v in cf.LAUNCHES.items()
+                                      if v}}
+    log(f"[3n] sqrt fit: {json.dumps(out['fit'])}")
+    check(res.convergence == 0, f"3n: sqrt fit did not converge: "
+          f"{res.message}")
+    check(abs(tau - 3.0) / 3.0 < 0.05 and abs(nu - 1.0) < 0.05,
+          f"3n: tau {tau}, nu {nu} not within 5%")
+    check(e_v <= 1e-4, f"3n: sqrt fit nllk {res.value} vs fused "
+          f"{res5a.value}: rel {e_v:.3e}")
+
+    # (b) the audit point
+    obs, times, ids, theta0 = audit_data()
+    n = len(ids)
+    got = {}
+    for dtype in (torch.float32, torch.float64):
+        data = prepare_ctcrw_data(obs, times, ids, dtype=dtype, device=dev)
+        th = torch.tensor(theta0, dtype=dtype, device=dev, requires_grad=True)
+        v = ctcrw_loglik_sqrt(th.expand(n, 4), None, None, None, 0.1,
+                              scan="blocked", data=data)
+        (g,) = torch.autograd.grad(-v, th)
+        got[dtype] = (-float(v.detach()), g.double().cpu().numpy())
+    (v32, g32), (v64, g64) = got[torch.float32], got[torch.float64]
+    check(np.isfinite(v32) and np.all(np.isfinite(g32)),
+          "3n: non-finite f32 sqrt nllk or gradient")
+    ev = abs(v32 - v64) / abs(v64)
+    eg = float(np.max(np.abs(g32 - g64)) / abs(v64))
+    names = ["mu1", "mu2", "log_tau", "log_nu"]
+    per = {nm: float(abs(g32[i] - g64[i]) / abs(g64[i]))
+           for i, nm in enumerate(names)}
+    # docs/ACCURACY.md, 1M-step audit, "f32 sqrt (tpu)": the JAX
+    # package's figures on one TPU v5e chip, not the port's
+    jax_tpu = {"nllk": 3.3e-6, "mu1": 1.3e-5, "mu2": 4.7e-5,
+               "log_tau": 8.7e-6, "log_nu": 8.1e-5}
+    out["audit_point"] = {"nllk_f32": v32, "nllk_f64": v64,
+                          "nllk_rel": ev, "grad_err_over_nllk": eg,
+                          "grad_rel_per_component": per,
+                          "jax_package_sqrt_tpu_rel": jax_tpu}
+    log(f"[3n] audit point, f32 sqrt vs f64 sqrt on the card: "
+        f"{json.dumps(out['audit_point'])}")
+    check(ev <= 1e-4, f"3n: audit f32 sqrt nllk rel {ev:.3e}")
+    check(eg <= 1e-4, f"3n: audit f32 sqrt gradient {eg:.3e} of |nllk|")
+
+    # (c) "pallas" against "blocked", value only; the pallas calls are
+    # the path of the new K8 / K2 instantiations
+    pm = {dt: at_point(torch, b, res5a.par)
+          for dt, b in ((torch.float32, b32), (torch.float64, b64))}
+    ou_pm = {dt: at_point(torch, ou[f"b{tag}"], ou["res"].par)
+             for dt, tag in ((torch.float32, "32"), (torch.float64, "64"))}
+    cdata = {torch.float32: d32, torch.float64: d64}
+    odata = {torch.float32: ou["d32"], torch.float64: ou["d64"]}
+    fns = {
+        "ctcrw_sqrt": lambda dt, scan: ctcrw_loglik_sqrt(
+            pm[dt][0], None, None, None, pm[dt][1], scan=scan,
+            data=cdata[dt]),
+        "ou_sqrt": lambda dt, scan: diag_ssm_loglik_sqrt(
+            "OU_SSM", ou_pm[dt][0], None, None, None, ou_pm[dt][1],
+            scan=scan, data=odata[dt]),
+        "ou_soa": lambda dt, scan: diag_ssm_loglik_soa(
+            "OU_SSM", ou_pm[dt][0], None, None, None, ou_pm[dt][1],
+            scan=scan, data=odata[dt]),
+    }
+    cmp = {}
+    with torch.no_grad():
+        blocked = {(k, dt): float(fn(dt, "blocked"))
+                   for k, fn in fns.items()
+                   for dt in (torch.float32, torch.float64)}
+        cf.reset_launches()
+        pallas = {(k, dt): float(fn(dt, "pallas"))
+                  for k, fn in fns.items()
+                  for dt in (torch.float32, torch.float64)}
+        torch.cuda.synchronize()
+        launches = dict(cf.LAUNCHES)
+    for k in fns:
+        e64 = abs(pallas[k, torch.float64] - blocked[k, torch.float64]) / \
+            abs(blocked[k, torch.float64])
+        e32 = abs(pallas[k, torch.float32] - blocked[k, torch.float32]) / \
+            abs(blocked[k, torch.float32])
+        e32_64 = abs(pallas[k, torch.float32] - blocked[k, torch.float64]) / \
+            abs(blocked[k, torch.float64])
+        cmp[k] = {"f64_rel": e64, "f32_rel": e32,
+                  "f32_pallas_vs_f64_blocked": e32_64,
+                  "llk_f64": blocked[k, torch.float64]}
+        check(e64 <= 1e-10, f"3n: {k} pallas vs blocked f64 rel {e64:.3e}")
+        check(e32 <= 1e-4, f"3n: {k} pallas vs blocked f32 rel {e32:.3e}")
+        for name in SLICE_PATH[k]:
+            check(launches[name] > 0, f"3n: {name} never launched by {k}")
+    out["pallas_vs_blocked"] = cmp
+    log(f"[3n] pallas vs blocked: {json.dumps(cmp)}; launches {launches}")
+    # a gradient through the forward-only kernels raises
+    p = pm[torch.float32][0].clone().requires_grad_(True)
+    try:
+        ctcrw_loglik_sqrt(p, None, None, None, pm[torch.float32][1],
+                          scan="pallas", data=d32)
+        raised = False
+    except RuntimeError as err:
+        raised = "forward-only" in str(err)
+    check(raised, "3n: a gradient through scan='pallas' did not raise")
+    return out, launches
+
+
+def argos_H(n, seed):
+    """Per-row 2x2 Argos-style error covariances: semi-axes a ~ U(0.05,
+    0.2), b ~ U(0.02, 0.08) and an orientation ~ U(0, pi) per row."""
+    rng = np.random.default_rng(seed)
+    a, b = rng.uniform(0.05, 0.2, size=n), rng.uniform(0.02, 0.08, size=n)
+    th = rng.uniform(0.0, np.pi, size=n)
+    c, s = np.cos(th), np.sin(th)
+    H = np.empty((n, 2, 2))
+    H[:, 0, 0] = a * a * c * c + b * b * s * s
+    H[:, 1, 1] = a * a * s * s + b * b * c * c
+    H[:, 0, 1] = H[:, 1, 0] = (a * a - b * b) * c * s
+    return H
+
+
+def config5a_H(n=1_000_000):
+    """Config 5a's data with its observation noise re-simulated under a
+    per-row Argos-style H (argos_H, seed 15): the latent path of
+    config5a (noise-free), plus chol(H_i) eps_i. Returns (data, H)."""
+    data = config5a(n, sobs=0.0)
+    H = argos_H(n, 15)
+    eps = np.random.default_rng(16).normal(size=(n, 2))
+    L = np.linalg.cholesky(H)
+    noise = np.einsum("nij,nj->ni", L, eps)
+    data["y1"] = data["y1"] + noise[:, 0]
+    data["y2"] = data["y2"] + noise[:, 1]
+    return data, H
+
+
+def f64_twin_of(torch, sde, kw, name):
+    """A float64 model on the card holding sde's fit (through a
+    checkpoint under build/)."""
+    from smoothsde_tpu_torch import SDE
+
+    path = os.path.join(HERE, "build", f"chip_smoke_{name}.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    sde.save_state(path)
+    return SDE(**kw, device="cuda", dtype=torch.float64).load_state(path)
+
+
+def states_and_residuals(torch, label, sde, sde64, expect_nan):
+    """filtered_states() and residuals() of a fitted model in f32 and in
+    f64 (its f64 twin at the same estimates): walls, finite exactly
+    where JAX gives finite (residuals NaN at `expect_nan`, the rows
+    without a measurement update); the f32 states within 1e-3 of the
+    largest f64 state, the f32 residuals within 0.1 of the f64 ones (a
+    tenth of their N(0, 1) scale: an f32 filter's error in a 1e3-scale
+    position, divided by sqrt(F) ~ 0.1, sets their floor; the relative
+    error is printed)."""
+    out = {}
+    for what in ("filtered_states", "residuals"):
+        vals = {}
+        for tag, m in (("f32", sde), ("f64", sde64)):
+            t = time.perf_counter()
+            vals[tag] = getattr(m, what)()
+            out[f"{what}_{tag}_wall_s"] = time.perf_counter() - t
+        a, b = vals["f32"], vals["f64"]
+        nan = np.isnan(b).any(axis=-1) if what == "residuals" else \
+            np.zeros(len(b), bool)
+        want_nan = expect_nan if what == "residuals" else nan
+        check(np.array_equal(np.isnan(a), np.isnan(b))
+              and np.array_equal(np.isnan(b).any(axis=-1), want_nan)
+              and np.all(np.isfinite(b[~want_nan])),
+              f"{label}: {what} not finite exactly where expected")
+        diff = float(np.nanmax(np.abs(a - b)))
+        err = diff / float(np.nanmax(np.abs(b)))
+        out[f"{what}_f32_vs_f64"] = err
+        out[f"{what}_f32_vs_f64_abs"] = diff
+        out[f"{what}_shape"] = list(a.shape)
+        if what == "residuals":
+            check(diff <= 0.1, f"{label}: residuals f32 vs f64 {diff:.3e}")
+        else:
+            check(err <= 1e-3, f"{label}: {what} f32 vs f64 {err:.3e} of "
+                  f"the largest")
+    log(f"[{label}] states and residuals: {json.dumps(out)}")
+    return out
+
+
+def phase_user_H(torch, card, sde5a, kw5a):
+    """Phase 3o: user H and the generic filter at config 5a's width (1M
+    steps, d = 2, a per-row Argos-style H): fits with "auto" (the
+    parallel full-state filter on the card) in f32 and f64. Gates: both
+    converge; the f32 nllk and gradient against f64 on the card at the
+    f32 optimum (1e-4 relative / 1e-4 of |nllk|); tau and nu within 5%
+    for the f64 fit. The f32 fit's tau and nu are printed, not gated:
+    the JAX package's f32 stopping rule, max |g| < 1e-3 (1 + |nllk|)
+    (3,394 here), ends its BFGS where the f32 gradient, accurate to a
+    few units, still reads ~1,800 in log tau (PERF.md §6). Then
+    filtered_states() and residuals() on the f32 fit and on phase 3's
+    isotropic fit, f32 against f64 at the same estimates."""
+    from smoothsde_tpu_torch.infer.fit import make_val_grad
+
+    data, H = config5a_H()
+    kw = dict(data=data, type="CTCRW", response=["y1", "y2"],
+              par0=[0, 0, 2, 0.8], other_data={"H": H})
+    out = {"card": card}
+    fits = {}
+    for tag, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        sde, res, wall = fit_on_card(torch, "3o", kw, dtype)
+        tau, nu = (float(v) for v in sde.par(t=0)[0, 2:4])
+        fits[tag] = (sde, res)
+        out[f"fit_{tag}"] = {"wall_s": wall, "evals": res.counts["evals"],
+                             "bfgs": res.counts, "via": res.convergence_via,
+                             "tau": tau, "nu": nu, "nllk": res.value,
+                             "twin": sde.bundle().twin}
+        check(res.convergence == 0,
+              f"3o: {tag} H fit did not converge: {res.message}")
+        check(sde.bundle().twin == "parallel", "3o: not the parallel filter")
+        if tag == "f64":
+            check(abs(tau - 3.0) / 3.0 < 0.05 and abs(nu - 1.0) < 0.05,
+                  f"3o: f64 fit tau {tau}, nu {nu} not within 5%")
+    sde, res = fits["f32"]
+    sde64 = f64_twin_of(torch, sde, kw, "user_H")
+    v32, g32, _ = make_val_grad(sde.bundle())(res.par)
+    v64, g64, _ = make_val_grad(sde64.bundle())(res.par)
+    ev = abs(v32 - v64) / abs(v64)
+    eg = float(np.max(np.abs(g32 - g64)) / abs(v64))
+    out["f32_vs_f64_at_f32_optimum"] = {
+        "nllk_f32": v32, "nllk_f64": v64, "nllk_rel": ev,
+        "grad_err_over_nllk": eg, "grad_f32": g32.tolist(),
+        "grad_f64": g64.tolist(),
+        "f32_stop_gtol": 1e-3 * (1.0 + abs(v32))}
+    vg = wall_ms(lambda: make_val_grad(sde.bundle())(res.par), 5, 1)
+    out["nllk_grad_1M_ms"] = vg
+    log(f"[3o] fits {json.dumps({k: out[k] for k in ('fit_f32', 'fit_f64')})}"
+        f"; f32 vs f64 {json.dumps(out['f32_vs_f64_at_f32_optimum'])}; "
+        f"nllk+grad wall ms {vg}")
+    check(ev <= 1e-4, f"3o: f32 nllk rel {ev:.3e}")
+    check(eg <= 1e-4, f"3o: f32 gradient {eg:.3e} of |nllk|")
+    row0 = np.zeros(len(data["time"]), bool)
+    row0[0] = True  # one track, no NaN row: only the start has no update
+    out["user_H"] = states_and_residuals(torch, "3o H", sde, sde64, row0)
+    iso64 = f64_twin_of(torch, sde5a, kw5a, "isotropic_5a")
+    out["isotropic_5a"] = states_and_residuals(torch, "3o 5a", sde5a, iso64,
+                                               row0)
+    return out
+
+
+def eseal_tracks(K=16, n=1000, mu_t=0.05, sigma_t=0.12, a1_t=-0.578,
+                 a2_t=1.214, tau_t=0.08):
+    """K tracks of n drift dives from tests/test_models_fit.py
+    `_eseal_sim`'s generative model (nllk_e_seal_ssm.hpp:11-59), one
+    seed per track (100 + k), with h ~ U(80, 120) and R ~ U(9, 11) varying
+    by dive: L_{i+1} = L_i + mu dt + sigma sqrt(dt) eps,
+    z_i = a1 + (a2 / R_i) L_i + (tau / sqrt(h_i)) nu_i, L_0 ~ 60."""
+    cols = {"ID": [], "time": [], "z": [], "h": [], "R": [], "dep": []}
+    for k in range(K):
+        rng = np.random.default_rng(100 + k)
+        L = 60.0 + rng.normal() + np.concatenate([[0.0], np.cumsum(
+            mu_t + sigma_t * rng.normal(size=n - 1))])
+        R = rng.uniform(9.0, 11.0, size=n)
+        h = rng.uniform(80.0, 120.0, size=n)
+        z = a1_t + a2_t * L / R + rng.normal(size=n) * tau_t / np.sqrt(h)
+        cols["ID"] += [k] * n
+        cols["time"] += list(np.arange(n, dtype=float))
+        cols["z"] += list(z)
+        cols["h"] += list(h)
+        cols["R"] += list(R)
+        cols["dep"] += [L[0]] * n
+    c = {k: np.asarray(v) for k, v in cols.items()}
+    return ({"ID": c["ID"], "time": c["time"], "z": c["z"]},
+            {"h": c["h"], "R": c["R"], "dep_fat": c["dep"]},
+            {"mu": mu_t, "sigma": sigma_t, "tau": tau_t})
+
+
+def phase_eseal(torch, card):
+    """Phase 3p: ESEAL_SSM, 16 tracks x 1,000 dives, in f32 on the card
+    (the parallel full-state filter), a1 and log_a2 pinned as in the JAX
+    package's recovery test, with the default (Schick et al. 2013) priors
+    and with priors=None. Gates: convergence of both; without priors mu,
+    sigma and tau at TestESEAL.test_recovery's bars (0.03, 0.06, 0.04
+    absolute); with them (their pseudo-count of 10 n pins sigma^2 near
+    4, so the truth is no bar) the f32 nllk within 1e-4 relative of the
+    f64 evaluation at the optimum."""
+    from smoothsde_tpu_torch import SDE
+    from smoothsde_tpu_torch.infer.fit import make_val_grad
+
+    data, other, truth = eseal_tracks()
+    out = {"card": card, "n": len(data["ID"])}
+    for tag, priors in (("schick2013", "schick2013"), ("no_priors", None)):
+        kw = dict(data=data, type="ESEAL_SSM", response="z",
+                  other_data={**other, "priors": priors}, par0=[0.0, 0.3])
+        t = time.time()
+        sde = SDE(**kw, device="cuda")
+        res = sde.fit(map={"a1": [True], "log_a2": [True]})
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        mu, sigma = (float(v) for v in sde.par(t=0)[0, :2])
+        est = dict(zip(res.par_names, res.par))
+        tau = float(np.exp(est["log_tau"]))
+        r = {"wall_s": wall, "evals": res.counts["evals"],
+             "via": res.convergence_via, "mu": mu, "sigma": sigma,
+             "tau": tau, "nllk": res.value, "twin": sde.bundle().twin}
+        check(res.convergence == 0, f"3p {tag}: ESEAL fit did not converge: "
+              f"{res.message}")
+        if priors is None:
+            for nm, got, bar in (("mu", mu, 0.03), ("sigma", sigma, 0.06),
+                                 ("tau", tau, 0.04)):
+                check(abs(got - truth[nm]) < bar,
+                      f"3p: {nm} {got} vs {truth[nm]} (bar {bar})")
+        else:
+            b64 = SDE(**kw, device="cuda", dtype=torch.float64).setup(
+                map={"a1": [True], "log_a2": [True]})
+            v64, _, _ = make_val_grad(b64)(res.par)
+            r["nllk_f64_at_optimum"] = v64
+            r["nllk_rel"] = abs(res.value - v64) / abs(v64)
+            check(r["nllk_rel"] <= 1e-4,
+                  f"3p: f32 nllk {res.value} vs f64 {v64}")
+        out[tag] = r
+        log(f"[3p] {tag}: {json.dumps(r)}")
+    return out
+
+
+def slice_kernel_checks(torch, b32, b64, d32, d64, x5a, ou):
+    """Phase 4 for the K8 / K2 instantiations of the generic and special
+    filters at full width: K8 and K2 `sqrt2` on config 5a's square-root
+    elements at its optimum, `sqrt1`, `diag_filter`, `diag_smooth` on
+    3b's OU_SSM elements at its optimum; each against its plain version
+    (f64, max abs error within 1e-8 of the output's scale), its time and
+    its plain version's (f32, CUDA events), its bound, and the device
+    time of one call of each (profiler). Returns {kernel name:
+    measurements}."""
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+    from smoothsde_tpu_torch.ops import scan_utils as su
+
+    out = {name: {} for name, _, _ in SLICE_KERNELS}
+    calls32 = {}
+    for dtype, b, dat, bo, do in ((torch.float64, b64, d64, ou["b64"],
+                                   ou["d64"]),
+                                  (torch.float32, b32, d32, ou["b32"],
+                                   ou["d32"])):
+        with torch.no_grad():
+            pm, sobs = at_point(torch, b, x5a)
+            opm, osobs = at_point(torch, bo, ou["res"].par)
+            els = {**slice_elements(torch, "CTCRW", pm, sobs, data=dat),
+                   **slice_elements(torch, "OU_SSM", opm, osobs, data=do)}
+            stacks = {}
+            for kind, el in els.items():
+                p = cf.plan(2, pm.shape[0] if kind == "sqrt2"
+                            else opm.shape[0])
+                stacks[kind] = (elem_stack(torch, kind, el, p), p)
+            pairs = {}
+            for kind in K8_KINDS:
+                st, p = stacks[kind]
+                rev = kind == "diag_smooth"
+                pairs[f"phase1_scan_{kind}"] = (
+                    partial(su.pallas_phase1_scan, st, kind, rev),
+                    partial(su.pallas_phase1_scan_plain, st, kind, rev), p)
+            for kind in ("sqrt2", "sqrt1"):
+                st, p = stacks[kind]
+                tot = su.pallas_phase1_scan(st, kind)[-1].contiguous()
+                pairs[f"block_prefix_{kind}"] = (
+                    partial(cf.block_prefix, tot, 2, kind, False),
+                    partial(cf.block_prefix_plain, tot, 2, kind, False), p)
+            for name, (kfn, pfn, p) in pairs.items():
+                got, ref = flat(kfn(), torch), flat(pfn(), torch)
+                err = float((got - ref).abs().max())
+                scale = max(1.0, float(ref.abs().max()))
+                e = out[name]
+                check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+                if dtype == torch.float64:
+                    e["max_abs_err"] = err
+                    e["max_rel_err"] = err / scale
+                    check(err <= 1e-8 * scale,
+                          f"{name}: f64 kernel vs plain max abs err {err:.3e}")
+                else:
+                    e["max_abs_err_f32"] = err
+                    e["max_rel_err_f32"] = err / scale
+                    e["ms"] = cuda_ms(kfn, 50, 3, torch)
+                    e["plain_ms"] = cuda_ms(pfn, 3, 1, torch)
+                    e["shape"] = (f"n={p.n} d={p.d} lanes={p.lanes} L={p.L} "
+                                  f"f32")
+                    e.update(bound(name, p, 4))
+                    calls32[name] = kfn
+
+    def all_calls():
+        for fn in calls32.values():
+            fn()
+
+    dev_ms, _, _ = profile_device_ms(all_calls, 10, torch)
+    for name, e in out.items():
+        e["device_ms"] = dev_ms[name]
+        log(f"  {name}: {e['ms']:.4f} ms (plain {e['plain_ms']:.2f} ms), "
+            f"device {e['device_ms'] * 1e3:.1f} us, bound "
+            f"{e['bound_us']:.1f} us, f64 max abs err {e['max_abs_err']:.2e}")
+    return out
+
+
 def main():
     import torch
 
@@ -2140,6 +2760,9 @@ def main():
     log("[2e] the scalar-state kernels D1a, D1b, D3a and D3b alone vs their "
         "plain versions, around their CUDA blocks and D1a's segments")
     kd = phase_alone(torch, "2e", diag_inputs, D_ALONE, df.OPS, cuts=D_CUTS)
+    log("[2f] the phase-1 scan K8 alone vs its plain version for the "
+        "scalar-state and square-root elements, around its CUDA block")
+    k8, k8_launches = phase_k8(torch)
 
     log("[3] config 5a: 1M-step 2-D CTCRW fit on the card, f32")
     t = time.time()
@@ -2231,6 +2854,16 @@ def main():
     log("[3m] fit(optimizer='device') at config 5a and 'auto' at config 2")
     device_opt = phase_device_optimizer(torch, card, data, res, fit_s,
                                         closed["config2_ou_smooth"])
+    log("[3n] the square-root filter at config 5a: the fit, the audit "
+        "point, and scan='pallas' (K8 / K2) against 'blocked'")
+    sqrt_out, slice_launches = phase_sqrt(torch, card, data, res, d32, d64,
+                                          b32, b64, ou)
+    log("[3o] user H at config 5a's width: the parallel full-state filter's "
+        "fit, filtered states and residuals")
+    user_h = phase_user_H(torch, card, sde, dict(
+        data=data, type="CTCRW", response=["y1", "y2"], par0=[0, 0, 2, 0.8]))
+    log("[3p] ESEAL_SSM: 16 tracks x 1,000 dives, with and without priors")
+    eseal = phase_eseal(torch, card)
 
     log("[4] kernels vs plain at the fit's shapes, and times")
     ops_k, ops_p = cf.OPS["kernels"], cf.OPS["plain"]
@@ -2331,6 +2964,18 @@ def main():
             "replaces": replaces, "launches": elem["launches"][name],
             **elem_checks[name],
         })
+    log("[4] the scalar-state and square-root K8 / K2 instantiations vs "
+        "plain at full width, and times")
+    slice_checks = slice_kernel_checks(torch, b32, b64, d32, d64, x_hat, ou)
+    for name, source, replaces in SLICE_KERNELS:
+        # the scalar smoothing kind's path is phase 2f (no fit scans it)
+        path = k8_launches if name == "phase1_scan_diag_smooth" \
+            else slice_launches
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": path[name],
+            **slice_checks[name],
+        })
     for e in kernels:
         e.update(k2.get(e["name"], {}))
         if e.get("device_ms"):  # the bound's share of the device time
@@ -2346,6 +2991,10 @@ def main():
     fit_line["colored_hessian_fit"] = colored
     fit_line["api_tail_config4"] = api_tail
     fit_line["device_optimizer"] = device_opt
+    fit_line["kernel_checks_k8_alone"] = k8
+    fit_line["sqrt_3n"] = sqrt_out
+    fit_line["user_H_3o"] = user_h
+    fit_line["eseal_3p"] = eseal
     for fit, times in ((ou, ou_times), (bm, bm_times)):
         fit_line[fit["typ"]] = {"fit": fit["summary"], **times}
     log("SUMMARY " + json.dumps(fit_line))

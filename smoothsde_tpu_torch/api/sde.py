@@ -8,16 +8,17 @@ with inverse links (`linear_predictor`, `par`, prediction grids),
 posterior draws and confidence intervals, model selection (`log_lik`,
 `edf_conditional`, AIC, BIC), residuals, simulation and posterior
 predictive checks, plots, printing, checkpoints in the JAX package's
-.npz format, and the smoothed states of a fitted CTCRW. Not ported yet
-(NotImplementedError naming ROADMAP.md queue 1 item 5):
-`filtered_states`, the state-space `residuals`, and
-`setup(kalman_impl="parallel" | "sqrt")`. Every ported type
+.npz format, the filtered states and whitened innovations of every
+state-space model, and the smoothed states of a fitted CTCRW. Every type
 takes smooths and random effects, integrated out by the Laplace
 approximation (infer/laplace.py), and REML; the closed-form models (BM,
-BM_t, OU, CIR) also decay-modulated splines. The state-space models
-(CTCRW, BM_SSM, OU_SSM) run their likelihood on the hand-written
+BM_t, OU, CIR) also decay-modulated splines. The isotropic state-space
+models (CTCRW, BM_SSM, OU_SSM) run their likelihood on the hand-written
 kernels and the Laplace layer's second-order quantities on a
-forward-mode twin (infer/objective.py `loglik_ad`).
+forward-mode twin (infer/objective.py `loglik_ad`); with a user H or P0,
+and ESEAL_SSM, on the generic full-state filter (ops/kalman.py), the
+parallel one on a card. Only a sharded fit (`mesh`) is not ported
+(ROADMAP.md queue 1 item 6).
 
 The device and the working type are explicit: `device="cuda"` (the
 default) runs the hand-written CUDA kernels, `device="cpu"` their plain
@@ -36,7 +37,7 @@ import torch
 
 from smoothsde_tpu_torch.formula.design import ColumnData, build_design
 from smoothsde_tpu_torch.formula.parser import parse_formula
-from smoothsde_tpu_torch.infer.objective import check_slice, resolve_device
+from smoothsde_tpu_torch.infer.objective import resolve_device
 from smoothsde_tpu_torch.models.registry import get_model_spec, model_eqn
 from smoothsde_tpu_torch.utils.grids import cov_grid
 from smoothsde_tpu_torch.utils.misc import prec_to_cov
@@ -57,16 +58,20 @@ class SDE:
         tau, kappa) and "CIR" (mu.., beta, sigma), and the state-space
         "CTCRW" (mu.., tau, nu), "BM_SSM" (mu.., sigma) and "OU_SSM"
         (mu.., tau, kappa), each with Gaussian measurement error of SD
-        sigma_obs (fitted); other types raise NotImplementedError naming
-        their ROADMAP.md item.
+        sigma_obs (fitted) or the user's H, and "ESEAL_SSM" (mu, sigma;
+        with log_tau, a1, log_a2 fitted beside them).
       response: response column name, or list of names (multivariate).
       par0: optional initial response-scale values, one per parameter
         (sequence in parameter order, or dict keyed by name).
       fixpar: names of SDE parameters fixed at their par0 value.
       other_data: model extras: "df" (BM_t); "t_decay" with "col_decay"
         (or "decay_term") and "ind_decay" for decay-modulated splines of
-        the closed-form models (R/sde.R:163-181); user H / P0 are not
-        ported yet.
+        the closed-form models (R/sde.R:163-181); "H", the per-row
+        observation covariance (n, m, m) or (m, m, n), and "P0", the
+        initial state covariance, of the state-space models
+        (R/sde.R:547-603); "h", "R", "dep_fat" and "priors"
+        ("schick2013" by default, None, or a dict of inverse-gamma
+        (shape, scale) under "sigma2" / "tau2") of ESEAL_SSM.
       device: "cuda" (default) or "cpu"; never chosen automatically.
       dtype: torch.float32 (default) or torch.float64.
     """
@@ -102,7 +107,6 @@ class SDE:
                 raise ValueError("'response' not found in 'data'")
 
         self._spec = get_model_spec(type, len(responses))
-        check_slice(self._spec, other_data)
         param_names = list(self._spec.param_names)
 
         if formulas is None:
@@ -372,10 +376,14 @@ class SDE:
         coefficients, smoothing parameters and decay rates.
 
         `kalman_impl` (state-space types): "auto" or "soa" (the fused
-        kernels on a CUDA model, their plain versions on the CPU) or
-        "sequential" (the per-dim sequential filter); "parallel" and
-        "sqrt" raise NotImplementedError (ROADMAP.md queue 1 item 5), as
-        does a `mesh` (item 6)."""
+        kernels on a CUDA model, their plain versions on the CPU),
+        "sequential" or "parallel" (the per-dim filters of
+        ops/kalman.py), or "sqrt" (the square-root filter,
+        ops/kalman_sqrt.py: the accuracy-optimal route for long f32
+        horizons); with a user H or P0, and for ESEAL_SSM, "auto" is the
+        full-state filter of the device ("parallel" on a card) and
+        "sequential" / "parallel" force one. A `mesh` raises
+        NotImplementedError (ROADMAP.md queue 1 item 6)."""
         from smoothsde_tpu_torch.infer.objective import (
             build_objective,
             unported,
@@ -732,14 +740,14 @@ class SDE:
     # ------------------------------------------------------------------
 
     def residuals(self) -> np.ndarray:
-        """Normalized one-step-ahead residuals of BM, BM_t and OU: the
+        """Normalized one-step-ahead residuals (n, m). BM, BM_t, OU: the
         closed-form transition residuals (R/sde.R:1186-1228). The
-        state-space types' whitened Kalman innovations raise
-        NotImplementedError (ROADMAP.md queue 1 item 5)."""
+        state-space types: the whitened Kalman innovations
+        chol(F)^-1 (y - Z a_pred), iid N(0, I) under the model, NaN where
+        no measurement update happens (the reference errors out for
+        them, R/sde.R:1221; the JAX package's extension)."""
         if self._spec.kind == "ssm":
-            from smoothsde_tpu_torch.infer.objective import unported
-
-            raise unported("the state-space residuals", "generic")
+            return self._residuals_ssm()
         n = self._data.n
         ids = self._ids
         breaks = np.where(ids[1:] != ids[:-1])[0]
@@ -780,6 +788,20 @@ class SDE:
         res = np.full((n, n_dim), np.nan)
         res[~is_start] = (Z[~is_start] - mean) / sd
         return res
+
+    def _residuals_ssm(self) -> np.ndarray:
+        """Whitened one-step-ahead innovations (see residuals)."""
+        res = self.out()
+        with torch.no_grad():
+            u, F, ok = self.bundle().innovations(self._full(res.par,
+                                                            res.bhat))
+        u, F, ok = (a.to("cpu").numpy() for a in (u, F, ok))
+        out = np.full(u.shape, np.nan)
+        idx = np.where(ok)[0]
+        if idx.size:
+            L = np.linalg.cholesky(F[idx])
+            out[idx] = np.linalg.solve(L, u[idx][..., None])[..., 0]
+        return out
 
     def edf_conditional(self) -> float:
         """Fixed df + trace(H_re V_re) (R/sde.R:1356-1379), H the Hessian
@@ -836,15 +858,22 @@ class SDE:
         return 2.0 * res.value + 2.0 * edf
 
     def filtered_states(self) -> np.ndarray:
-        """The Kalman filtered states (the reference's REPORT(aest_all)):
-        not ported yet (ROADMAP.md queue 1 item 5)."""
+        """Kalman filtered state estimates (n, s) of a state-space model,
+        the reference's REPORT(aest_all) (nllk_ctcrw.hpp:249,
+        nllk_bm_ssm.hpp:177, nllk_ou_ssm.hpp:215): row i the state
+        estimate after observation i (the prediction for i + 1, or a0 at
+        a track start), at the fitted parameters. On a CUDA model they
+        come from the parallel filter's filtered moments, on the CPU from
+        the sequential scan (infer/objective.py `filter_states`)."""
         if self._spec.kind != "ssm":
             raise RuntimeError(
                 "filtered_states is only available for state-space models"
             )
-        from smoothsde_tpu_torch.infer.objective import unported
-
-        raise unported("filtered_states", "generic")
+        res = self.out()
+        with torch.no_grad():
+            states = self.bundle().filter_states(self._full(res.par,
+                                                            res.bhat))
+        return states.to("cpu").numpy()
 
     def smoothed_states(self):
         """Smoothed (position, velocity) state distributions for CTCRW

@@ -13,8 +13,9 @@
 // the accumulator (the later segment in time) comes first. Every level
 // of the scans below keeps that order: the first argument is the earlier
 // in scan order. Templated on E: instantiated for the CTCRW elements
-// (Elem14 forward, Smooth9 reverse) and the scalar-state BM_SSM / OU_SSM
-// elements (Elem5 forward, Smooth3 reverse; csrc/diag_common.cuh).
+// (Elem14 forward, Smooth9 reverse), the scalar-state BM_SSM / OU_SSM
+// elements (Elem5 forward, Smooth3 reverse; csrc/diag_common.cuh) and the
+// square-root elements (Sqrt14, Sqrt5 forward; csrc/sqrt_common.cuh).
 //
 // What bounds it on the H100. The function reads each total once and
 // writes each prefix once: 2 * E::N * d * NB values, 7.0 MB for Elem14
@@ -54,6 +55,7 @@
 
 #include "ctcrw_common.cuh"
 #include "diag_common.cuh"
+#include "sqrt_common.cuh"
 
 namespace ssde {
 
@@ -204,11 +206,13 @@ int launch_block_prefix(const T* totals, T* out, T* tiles, int d, int NB,
                                                     ntiles, reverse, stream);  \
   }
 
-#define SSDE_PREFIX_ENTRY(T, SUFFIX)                   \
-  SSDE_PREFIX_ENTRY_ONE(T, SUFFIX, filter, Elem14)     \
-  SSDE_PREFIX_ENTRY_ONE(T, SUFFIX, smooth, Smooth9)    \
-  SSDE_PREFIX_ENTRY_ONE(T, SUFFIX, diag_filter, Elem5) \
-  SSDE_PREFIX_ENTRY_ONE(T, SUFFIX, diag_smooth, Smooth3)
+#define SSDE_PREFIX_ENTRY(T, SUFFIX)                     \
+  SSDE_PREFIX_ENTRY_ONE(T, SUFFIX, filter, Elem14)       \
+  SSDE_PREFIX_ENTRY_ONE(T, SUFFIX, smooth, Smooth9)      \
+  SSDE_PREFIX_ENTRY_ONE(T, SUFFIX, diag_filter, Elem5)   \
+  SSDE_PREFIX_ENTRY_ONE(T, SUFFIX, diag_smooth, Smooth3) \
+  SSDE_PREFIX_ENTRY_ONE(T, SUFFIX, sqrt2, Sqrt14)        \
+  SSDE_PREFIX_ENTRY_ONE(T, SUFFIX, sqrt1, Sqrt5)
 
 SSDE_PREFIX_ENTRY(float, f32)
 SSDE_PREFIX_ENTRY(double, f64)

@@ -12,7 +12,8 @@ columns optionally decay-modulated), and loglik one of:
     torch ops, so torch.func transforms it to any order and the Laplace
     approximation (infer/laplace.py) integrates smooths and random
     effects out;
-  - the isotropic state-space models on the fused kernels: CTCRW through
+  - the isotropic state-space models (CTCRW, BM_SSM, OU_SSM without a
+    user H or P0) on the fused kernels: CTCRW through
     ops/kalman_soa.ctcrw_loglik_soa (scan="fused", analytic_grad=True),
     BM_SSM / OU_SSM through ops/diag_fused.diag_ssm_loglik_fused
     (objective.py:556-571). Their gradients are reverse-only
@@ -24,20 +25,31 @@ columns optionally decay-modulated), and loglik one of:
     the device and n): on the CPU the per-dim sequential filter batched
     by track (ops/kalman.py, the JAX package's CPU route); on a CUDA
     device the SoA filter with a plain scan, "blocked" from
-    TWIN_SOA_MIN_STEPS steps and "associative" below (PERF.md §5).
+    TWIN_SOA_MIN_STEPS steps and "associative" below (PERF.md §5);
+  - the generic route (a user H (n, m, m) or P0, and ESEAL_SSM with its
+    inverse-gamma priors): the full-state steps of models/ssm.py through
+    ops/kalman.py `kalman_loglik`, "parallel" on a CUDA device and
+    "sequential" on the CPU (`default_filter_impl`); plain tensor
+    arithmetic, so it is its own twin, as in the JAX package.
 
-`kalman_impl` picks the state-space value route: "auto" and "soa" the
-fused kernels (their plain versions on the CPU), "sequential" the
-per-dim sequential filter (ops/kalman.py, objective.py:572-582 of the
-JAX package); "parallel" and "sqrt" wait for ROADMAP.md queue 1 item 5.
-The bundle's `loglik` is that route's unpenalized log-likelihood: under
-torch.no_grad on a CUDA model a value-only pass through the forward
-kernels (K1a, K2, K1b for CTCRW; D1a, K2, D1b for BM_SSM / OU_SSM).
+`kalman_impl` picks the isotropic state-space value route
+(objective.py:491-583 of the JAX package): "auto" and "soa" the fused
+kernels (their plain versions on the CPU), "sequential" and "parallel"
+the per-dim filters of ops/kalman.py, "sqrt" the square-root filter
+(ops/kalman_sqrt.py; its plain "blocked" scan on a card, "sequential" on
+the CPU, as objective.py:540-544). On the generic route "auto" is the
+device's filter and "sequential" / "parallel" force one. The bundle's
+`loglik` is that route's unpenalized log-likelihood: under torch.no_grad
+on a CUDA model with the fused route a value-only pass through the
+forward kernels (K1a, K2, K1b for CTCRW; D1a, K2, D1b for BM_SSM /
+OU_SSM). For the state-space types the bundle also carries
+`filter_states` (the reference's aest_all) and `innovations` (u, F, ok),
+from the full-state steps: on a card the parallel filter's filtered
+moments, on the CPU the sequential scans (objective.py:636-644).
 
 With random effects and no REML or pinned entries, p_re >= 16 inner
-coefficients get a colored Hessian plan (infer/coloring.py). Everything
-outside this (user H or P0; ESEAL_SSM; a mesh) raises
-NotImplementedError naming its ROADMAP.md item.
+coefficients get a colored Hessian plan (infer/coloring.py). A mesh
+raises NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -51,6 +63,7 @@ import torch
 from smoothsde_tpu_torch.infer.params import ParamBlock, ParamPacker
 from smoothsde_tpu_torch.models.registry import ModelSpec
 from smoothsde_tpu_torch.models.ssm import (
+    SSM_STEP_BUILDERS,
     ctcrw_steps_perdim,
     diag_ssm_steps_perdim,
 )
@@ -64,7 +77,13 @@ from smoothsde_tpu_torch.ops.diag_fused import (
 )
 from smoothsde_tpu_torch.ops.kalman import (
     batch_steps_by_track,
+    default_filter_impl,
+    filtered_to_reported_states,
+    kalman_filter_parallel,
+    kalman_innovations,
+    kalman_loglik,
     kalman_loglik_batched,
+    kalman_loglik_sequential,
     track_pad_plan,
 )
 from smoothsde_tpu_torch.ops.kalman_soa import (
@@ -73,43 +92,52 @@ from smoothsde_tpu_torch.ops.kalman_soa import (
     precompute_dt,
     prepare_ctcrw_data,
 )
+from smoothsde_tpu_torch.ops.kalman_sqrt import (
+    ctcrw_loglik_sqrt,
+    diag_ssm_loglik_sqrt,
+)
 from smoothsde_tpu_torch.ops.penalty import make_penalty
 
-CLOSED_FORM_TYPES = ("BM", "BM_t", "OU", "CIR")
-SSM_TYPES = ("CTCRW", "BM_SSM", "OU_SSM")
-PORTED_TYPES = CLOSED_FORM_TYPES + SSM_TYPES
+_ROADMAP = {"sharding": "queue 1 item 6 (sharding)"}
 
-_ROADMAP = {
-    "generic": "queue 1 item 5 (generic and special filters: user H/P0, "
-               "ESEAL_SSM)",
-    "sharding": "queue 1 item 6 (sharding)",
-}
-
-# setup(kalman_impl=...) choices: "auto" runs the fused kernels,
-# "sequential" the per-dim sequential filter; "soa" is the JAX package's
-# name for the route "auto" takes here; the rest are not ported
-KALMAN_IMPLS = ("auto", "sequential")
+# setup(kalman_impl=...) choices (the JAX package's); "soa" is the JAX
+# package's name for the route "auto" takes here
+KALMAN_IMPLS = ("auto", "sequential", "parallel", "sqrt")
 IMPL_ALIASES = {"soa": "auto"}
-UNPORTED_IMPLS = ("parallel", "sqrt")
 
 
 def unported(what: str, item: str):
     return NotImplementedError(
-        f"{what} is outside the ported slice ({', '.join(PORTED_TYPES)}); "
-        f"see ROADMAP.md {_ROADMAP[item]}"
+        f"{what} is not ported yet; see ROADMAP.md {_ROADMAP[item]}"
     )
 
 
-def check_slice(spec: ModelSpec, other_data=None):
-    """Raise NotImplementedError for anything outside the ported slice."""
-    if spec.type not in PORTED_TYPES:
-        raise unported(f"model type {spec.type!r}", "generic")
-    if spec.kind == "closed_form":
-        return
-    other_data = other_data or {}
-    for key in ("H", "P0"):
-        if other_data.get(key) is not None:
-            raise unported(f"other_data[{key!r}]", "generic")
+def _dinvgamma_log(x, shape, scale):
+    """Inverse-gamma log-density (nllk_e_seal_ssm.hpp:68-78) at x, a
+    tensor; shape and scale floats, filled on x's device in x's shape (no
+    host copy; no 0-d operand)."""
+    a, b = x.new_full(x.shape, shape), x.new_full(x.shape, scale)
+    return a * torch.log(b) - torch.special.gammaln(a) - \
+        (a + 1.0) * torch.log(x) - b / x
+
+
+def eseal_priors(priors, n: int) -> dict:
+    """The ESEAL_SSM inverse-gamma priors on sigma^2 and tau^2 as
+    {"sigma2": (shape, scale), "tau2": (shape, scale)}: "schick2013" (the
+    default; the reference's hard-coded Schick et al. (2013) values,
+    nllk_e_seal_ssm.hpp:215-216), None or "none" (no priors), or a dict
+    with either key."""
+    if isinstance(priors, str) and priors == "schick2013":
+        return {"sigma2": (10.0 * n, 4.0 * (10.0 * n - 1.0)),
+                "tau2": (n / 2.0, n / 2.0 - 1.0)}
+    if priors is None or (isinstance(priors, str) and priors == "none"):
+        return {}
+    if not isinstance(priors, dict):
+        raise ValueError(
+            "other_data['priors'] must be 'schick2013', None, or a dict "
+            "with 'sigma2'/'tau2' (shape, scale) entries"
+        )
+    return dict(priors)
 
 
 # The forward-mode twin's route on a CUDA device: the SoA filter's
@@ -158,8 +186,12 @@ class ObjectiveBundle:
     # the closed-form models); without a mesh joint_nllk_ad_flat is it
     joint_nllk_ad: Optional[Callable] = None
     joint_nllk_ad_flat: Optional[Callable] = None
+    filter_states: Optional[Callable] = None  # SSMs: fn(full) -> (n, s)
+    innovations: Optional[Callable] = None  # SSMs: fn(full) -> (u, F, ok)
     hess_plan: Optional[dict] = None  # colored inner-Hessian plan
-    twin: str = ""  # the twin's route (`twin_route`), state-space only
+    # the twin's route (`twin_route`, or the generic filter's impl),
+    # state-space only
+    twin: str = ""
     marginal: Optional[Callable] = None  # the Laplace marginal, made once
     # the unpenalized log-likelihood on the value route (`kalman_impl`)
     loglik: Optional[Callable] = None
@@ -185,17 +217,35 @@ def build_objective(
     fixpar = list(fixpar or [])
     init = dict(init or {})
     map_fix = dict(map_fix or {})
-    check_slice(spec, other_data)
     kalman_impl = IMPL_ALIASES.get(kalman_impl, kalman_impl)
-    if kalman_impl not in KALMAN_IMPLS + UNPORTED_IMPLS:
+    if kalman_impl not in KALMAN_IMPLS:
         raise ValueError(f"unknown kalman_impl {kalman_impl!r}")
-    if spec.kind == "ssm" and kalman_impl in UNPORTED_IMPLS:
-        raise unported(f"kalman_impl={kalman_impl!r}", "generic")
     device = resolve_device(device)
     n, n_dim = obs.shape
     param_names = list(spec.param_names)
     n_par = len(param_names)
     closed_form = spec.kind == "closed_form"
+    eseal = spec.type == "ESEAL_SSM"
+
+    # the user's observation covariance, (n, m, m) or (m, m, n) as the
+    # reference takes it (R/sde.R:563-568), and initial covariance
+    H_array = other_data.get("H")
+    if H_array is not None:
+        H_array = np.asarray(H_array, float)
+        if H_array.ndim == 3 and H_array.shape[0] != n and \
+                H_array.shape[-1] == n:
+            H_array = np.moveaxis(H_array, -1, 0)
+    P0 = other_data.get("P0")
+    # the generic route: the full-state filter (ESEAL_SSM, user H or P0)
+    generic = not closed_form and (eseal or H_array is not None
+                                   or P0 is not None)
+    if generic and kalman_impl == "sqrt":
+        raise ValueError(
+            "kalman_impl='sqrt' needs isotropic observation noise and the "
+            "default P0 (the square-root filter is per dim)"
+        )
+    filter_impl = (default_filter_impl(device) if kalman_impl == "auto"
+                   else kalman_impl)
 
     def dev(x):
         return torch.as_tensor(np.asarray(x, np.float64)).to(
@@ -224,24 +274,34 @@ def build_objective(
 
     # the per-step data (observations, f64-derived intervals, masks) is
     # built once on the device, not per evaluation
+    data = None
     if closed_form:
         data = prepare_closed_form_data(obs, times, ids, dtype=dtype,
                                         device=device,
                                         dt=precompute_dt(times, ids))
-    elif spec.type == "CTCRW":
+    elif spec.type == "CTCRW" and not generic:
         data = prepare_ctcrw_data(obs, times, ids, dtype=dtype, device=device)
-    else:
+    elif not generic:
         data = prepare_diag_data(spec.type, obs, times, ids, dtype=dtype,
                                  device=device)
-    twin = "" if closed_form else twin_route(device, n)
-    sequential = not closed_form and kalman_impl == "sequential"
-    if twin == "track" or sequential:
-        # the sequential filter's own copy of the data and its host plan,
-        # made once outside every transform
+    if closed_form:
+        twin = ""
+    elif generic:
+        twin = filter_impl  # the generic filter is its own twin
+    else:
+        twin = twin_route(device, n)
+    if not closed_form:
+        # the filters' own copy of the data and the host track plan, made
+        # once outside every transform (the per-dim and full-state steps)
         obs_t = dev(obs)
         ids_t = torch.as_tensor(np.asarray(ids), device=device)
         dt_t = dev(precompute_dt(times, ids))
-        track_plan = track_pad_plan(ids, device=device)
+        track_plan = track_pad_plan(ids, device=device) \
+            if twin == "track" else None
+        H_t = None if H_array is None else dev(H_array)
+        P0_t = None if P0 is None else dev(P0)
+        if eseal:
+            eseal_data = [dev(other_data[k]) for k in ("h", "R", "dep_fat")]
 
     def perdim_steps(full, sobs):
         pm = par_matrix(full)
@@ -250,6 +310,18 @@ def build_objective(
                                       dt=dt_t)
         return diag_ssm_steps_perdim(spec.type, pm, obs_t, None, ids_t,
                                      sigma_obs=sobs, dt=dt_t)
+
+    def full_steps(full):
+        """The full-state steps of models/ssm.py (the generic filter's
+        input, and the filtered states' and innovations')."""
+        pm = par_matrix(full)
+        if eseal:
+            return SSM_STEP_BUILDERS[spec.type](
+                pm, obs_t, None, ids_t, full["log_tau"][0], full["a1"][0],
+                full["log_a2"][0], *eseal_data, P0=P0_t, dt=dt_t)
+        return SSM_STEP_BUILDERS[spec.type](
+            pm, obs_t, None, ids_t, sigma_obs=torch.exp(
+                full["log_sigma_obs"][0]), H_array=H_t, P0=P0_t, dt=dt_t)
 
     # ---- decay-modulated splines (closed-form models only,
     #      R/sde.R:634-653, nllk_sde.hpp:47-58) ----
@@ -285,8 +357,16 @@ def build_objective(
         return v
 
     blocks: List[ParamBlock] = []
-    if not closed_form:
-        fixed_sobs = np.array([False])
+    if eseal:
+        # initial values of R/sde.R:606-609
+        for name, default in (("log_tau", 0.0), ("a1", -0.578),
+                              ("log_a2", float(np.log(1.214)))):
+            fixed = np.atleast_1d(np.asarray(map_fix.get(name, [False]),
+                                             bool))
+            blocks.append(ParamBlock(name, _init(name, 1, default), fixed))
+    elif not closed_form:
+        # sigma_obs is fixed when the user gives H (objective.py:267)
+        fixed_sobs = np.array([H_array is not None])
         if "log_sigma_obs" in map_fix:
             fixed_sobs = np.atleast_1d(
                 np.asarray(map_fix["log_sigma_obs"], bool))
@@ -375,11 +455,39 @@ def build_objective(
         def loglik(full):
             return closed_form_loglik(spec.type, None, None, None,
                                       par_matrix(full), other, data=data)
+    elif generic:
+        priors = eseal_priors(other_data.get("priors", "schick2013"), n) \
+            if eseal else {}
+
+        def loglik(full):
+            llk = kalman_loglik(full_steps(full), impl=filter_impl)
+            # the inverse-gamma priors of ESEAL_SSM, on (1,) tensors: a
+            # float times a 0-d tensor promotes f32 under jvp-of-grad
+            if "sigma2" in priors:
+                sigma0 = torch.exp(par_matrix(full)[:1, 1])
+                llk = llk + _dinvgamma_log(sigma0**2, *priors["sigma2"]).sum()
+            if "tau2" in priors:
+                tau = torch.exp(full["log_tau"])
+                llk = llk + _dinvgamma_log(tau**2, *priors["tau2"]).sum()
+            return llk
+
+        loglik_ad = loglik
     else:
         def loglik(full):
             sobs = torch.exp(full["log_sigma_obs"][0])
-            if sequential:
-                return kalman_loglik_batched(perdim_steps(full, sobs))
+            if kalman_impl in ("sequential", "parallel"):
+                return kalman_loglik_batched(perdim_steps(full, sobs),
+                                             impl=kalman_impl)
+            if kalman_impl == "sqrt":
+                # the square-root filter, by plain AD through its scan
+                scan = "blocked" if device.type == "cuda" else "sequential"
+                if spec.type == "CTCRW":
+                    return ctcrw_loglik_sqrt(par_matrix(full), None, None,
+                                             None, sigma_obs=sobs, scan=scan,
+                                             data=data)
+                return diag_ssm_loglik_sqrt(spec.type, par_matrix(full), None,
+                                            None, None, sigma_obs=sobs,
+                                            scan=scan, data=data)
             if spec.type == "CTCRW":
                 return ctcrw_loglik_soa(
                     par_matrix(full), None, None, None, sigma_obs=sobs,
@@ -406,7 +514,24 @@ def build_objective(
             steps = perdim_steps(full, sobs)
             if track_plan is not None:
                 steps = batch_steps_by_track(steps, *track_plan)
-            return kalman_loglik_batched(steps)
+            return kalman_loglik_batched(steps, impl="sequential")
+
+    filter_states = innovations = None
+    if not closed_form:
+        states_impl = default_filter_impl(device)
+
+        def filter_states(full):
+            """(n, s) state estimates after each observation (aest_all)."""
+            steps = full_steps(full)
+            if states_impl == "parallel":
+                return filtered_to_reported_states(
+                    steps, kalman_filter_parallel(steps)[1])
+            return kalman_loglik_sequential(steps, with_states=True)[1]
+
+        def innovations(full):
+            """(u (n, m), F (n, m, m), ok (n,)), ops/kalman.py
+            `kalman_innovations`."""
+            return kalman_innovations(full_steps(full), impl=states_impl)
 
     # ---- penalty ----
     penalty = make_penalty(design.S_groups, normalize=closed_form,
@@ -460,6 +585,8 @@ def build_objective(
         kind=spec.kind,
         joint_nllk_ad=joint_nllk_ad,
         joint_nllk_ad_flat=joint_nllk_ad,
+        filter_states=filter_states,
+        innovations=innovations,
         hess_plan=hess_plan,
         twin=twin,
         loglik=loglik,

@@ -57,6 +57,8 @@ _SIGNATURES = {
     "diag_filter_scan": "ppppdppii",
     "block_prefix_diag_filter": "pppiiii",
     "block_prefix_diag_smooth": "pppiiii",
+    "block_prefix_sqrt2": "pppiiii",
+    "block_prefix_sqrt1": "pppiiii",
     # stack, moments, totals, L, lanes
     "diag_smooth_totals": "pppii",
     # stack, moments, suffix, h, p0, cot, hbar, L, lanes
@@ -73,6 +75,10 @@ _SIGNATURES = {
     # phase-1 scan, csrc/phase1_scan.cu: in, out, L, lanes, reverse
     "phase1_scan_filter": "ppiii",
     "phase1_scan_smooth": "ppiii",
+    "phase1_scan_diag_filter": "ppiii",
+    "phase1_scan_diag_smooth": "ppiii",
+    "phase1_scan_sqrt2": "ppiii",
+    "phase1_scan_sqrt1": "ppiii",
 }
 _CTYPES = {"p": ctypes.c_void_p, "d": ctypes.c_double, "i": ctypes.c_int}
 # entry points that take nothing and return a constant of the built

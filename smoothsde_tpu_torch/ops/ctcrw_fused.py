@@ -49,7 +49,9 @@ The kernels, each with its plain PyTorch version here:
   elem_score_scan     (K5b)  K3b without the par chain rule: the 8
                              element-space cotangent rows and h
 
-(K8, the generic phase-1 scan, lives in ops/scan_utils.py.) A wrapper
+(K8, the generic phase-1 scan, lives in ops/scan_utils.py; K2 and K8
+take every element kind of `ELEMS`, the square-root ones of
+ops/kalman_sqrt.py included.) A wrapper
 runs its plain version only for a tensor that lies on the CPU; for a
 CUDA tensor it launches its kernel (csrc/, built by ops/_kernels.py) or
 raises. Each wrapper counts its launches in `LAUNCHES`.
@@ -68,6 +70,14 @@ from smoothsde_tpu_torch.ops.kalman_smooth import (
     Smooth2,
     _comb1_rev,
     _combine2_rev,
+)
+from smoothsde_tpu_torch.ops.kalman_sqrt import (
+    _ID_SQ1,
+    _ID_SQ2,
+    SqrtElement1,
+    SqrtElement2,
+    _combine_sqrt1,
+    _combine_sqrt2,
 )
 from smoothsde_tpu_torch.ops.kalman_soa import (
     _ID1,
@@ -521,6 +531,18 @@ def filter_scan_plain(stack, bd, prefix, h, p0_pos, p0_vel):
     return torch.stack(moments), acc
 
 
+def _pack_sqrt2(e: SqrtElement2):
+    """14 components: A (4), b (2), U (3), eta (2), Z (3)."""
+    return [e.A[0][0], e.A[0][1], e.A[1][0], e.A[1][1], *e.b, *e.U, *e.eta,
+            *e.Z]
+
+
+def _unpack_sqrt2(v) -> SqrtElement2:
+    return SqrtElement2(((v[0], v[1]), (v[2], v[3])), (v[4], v[5]),
+                        (v[6], v[7], v[8]), (v[9], v[10]),
+                        (v[11], v[12], v[13]))
+
+
 class _ElemKind(NamedTuple):
     combine: Callable
     pack: Callable
@@ -534,6 +556,11 @@ ELEMS = {
     # scalar-state elements of BM_SSM / OU_SSM (ops/diag_fused.py)
     "diag_filter": _ElemKind(_comb1, list, tuple, list(_ID1)),
     "diag_smooth": _ElemKind(_comb1_rev, list, tuple, list(_ID1_SM)),
+    # square-root elements (ops/kalman_sqrt.py)
+    "sqrt2": _ElemKind(_combine_sqrt2, _pack_sqrt2, _unpack_sqrt2,
+                       _pack_sqrt2(_ID_SQ2)),
+    "sqrt1": _ElemKind(_combine_sqrt1, list, lambda v: SqrtElement1(*v),
+                       list(_ID_SQ1)),
 }
 
 
@@ -735,6 +762,12 @@ LAUNCHES = {
     "elem_score_scan": 0,
     "phase1_scan_filter": 0,
     "phase1_scan_smooth": 0,
+    "phase1_scan_diag_filter": 0,
+    "phase1_scan_diag_smooth": 0,
+    "phase1_scan_sqrt2": 0,
+    "phase1_scan_sqrt1": 0,
+    "block_prefix_sqrt2": 0,
+    "block_prefix_sqrt1": 0,
 }
 
 
@@ -834,7 +867,8 @@ def filter_scan(stack, bd, prefix, h, p0_pos, p0_vel):
 def block_prefix(totals, d, elem, reverse):
     """K2 wrapper; see block_prefix_plain. elem: "filter" (14-comp,
     `_combine2`), "smooth" (9-comp, `_combine2_rev`), "diag_filter"
-    (5-comp, `_comb1`) or "diag_smooth" (3-comp, `_comb1_rev`)."""
+    (5-comp, `_comb1`), "diag_smooth" (3-comp, `_comb1_rev`), "sqrt2"
+    (14-comp, `_combine_sqrt2`) or "sqrt1" (5-comp, `_combine_sqrt1`)."""
     if not _on_cuda(totals):
         return block_prefix_plain(totals, d, elem, reverse)
     C, lanes = totals.shape

@@ -174,9 +174,9 @@ def _scan_elements(combine, identity, elem, scan: str, reverse=False):
     scan: "blocked" (the block decomposition of ops/scan_utils.py with
     its plain phases: no kernel, as the JAX package's "blocked"),
     "pallas" (the same with the phase-1 kernel K8 and K2 for CUDA
-    tensors), "auto" ("pallas" on a CUDA device for the elements K8 is
-    built for, "blocked" otherwise: the fast blocked scan of the device,
-    as in the JAX package),
+    tensors, forward-only), "auto" ("pallas" for CUDA tensors that need
+    no gradient, "blocked" otherwise: the fast blocked scan of the
+    device, as in the JAX package),
     "sequential" (one combine per step, a Python loop) or "associative"
     (Hillis-Steele over all n steps, plain torch). "fused" scans as
     "associative", as the JAX package's fallthrough does. reverse=True
@@ -186,9 +186,11 @@ def _scan_elements(combine, identity, elem, scan: str, reverse=False):
     from smoothsde_tpu_torch.ops import scan_utils
 
     if scan == "auto":
-        leaf = scan_utils.elem_kind(combine).pack(elem)[0]
-        k8 = scan_utils._kind_name(combine) in scan_utils._K8
-        scan = "pallas" if leaf.is_cuda and k8 else "blocked"
+        leaves = [x for x in scan_utils.elem_kind(combine).pack(elem)
+                  if isinstance(x, torch.Tensor)]
+        grad = torch.is_grad_enabled() and any(x.requires_grad
+                                               for x in leaves)
+        scan = "pallas" if leaves[0].is_cuda and not grad else "blocked"
     if scan in ("blocked", "pallas"):
         return scan_utils.blocked_associative_scan(
             combine, identity, elem,
@@ -697,11 +699,10 @@ def diag_ssm_loglik_soa(type, par_mat, obs, times, ids, sigma_obs,
     """BM_SSM / OU_SSM log-likelihood through a scalar-state SoA filter:
     ops/diag_fused.py's per-step system and 5-comp filtering elements
     (`diag_system`, `diag_elements`), composed by `_comb1` through
-    `_scan_elements` ("blocked", "associative", "sequential"; "auto" is
-    "blocked", since the phase-1 kernel K8 is not built for these
-    elements: "pallas" on a CUDA tensor raises, ROADMAP queue 1 item 5),
-    the likelihood recovered elementwise (`diag_llk_from_filtered`).
-    Plain tensor arithmetic: every order of torch.func runs through it.
+    `_scan_elements` ("blocked", "associative", "sequential", or
+    "pallas": K8 and K2 on a CUDA tensor, forward-only), the likelihood
+    recovered elementwise (`diag_llk_from_filtered`). Off "pallas" it is
+    plain tensor arithmetic: every order of torch.func runs through it.
     Port of the JAX package's `diag_ssm_loglik_soa`
     (ops/kalman_soa.py:835-938). Pass `data` (prepare_diag_data of the
     same type) to skip rebuilding the per-step data; obs/times/ids are

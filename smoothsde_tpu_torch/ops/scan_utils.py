@@ -19,10 +19,12 @@ out as one time-major stack (L, C, lanes), C the element's components:
 `reverse=True` scans from the last step to the first (the RTS
 smoother's order): K8 walks each lane backwards and K2 takes the
 suffix, which replaces the JAX package's flip / scan / flip. The
-combine must be one the element table ops/ctcrw_fused.py `ELEMS` knows
-(`_combine2`, `_combine2_rev`, `_comb1`, `_comb1_rev`); K8 is built for
-the first two, and CUDA tensors of the scalar elements raise until the
-module that scans them is ported (ROADMAP).
+combine must be one the element table ops/ctcrw_fused.py `ELEMS` knows,
+and K8 and K2 are built for each: the CTCRW filtering and smoothing
+elements (`_combine2`, `_combine2_rev`), the scalar-state ones (`_comb1`,
+`_comb1_rev`) and the square-root ones (`_combine_sqrt2`,
+`_combine_sqrt1`, ops/kalman_sqrt.py). The kernels are forward-only, as
+the JAX package's phase-1 kernel: a gradient through a launch raises.
 
 The JAX package's TPU geometry (NB = 2048 blocks, L_CH = 32, the
 fallback to an XLA phase 1 when lanes % 1024 != 0) is not carried over:
@@ -38,14 +40,16 @@ import torch
 from smoothsde_tpu_torch.ops import ctcrw_fused as cf
 from smoothsde_tpu_torch.ops.kalman_smooth import _comb1_rev, _combine2_rev
 from smoothsde_tpu_torch.ops.kalman_soa import _comb1, _combine2
+from smoothsde_tpu_torch.ops.kalman_sqrt import _combine_sqrt1, _combine_sqrt2
 
 _KINDS = {
     _combine2: "filter",
     _combine2_rev: "smooth",
     _comb1: "diag_filter",
     _comb1_rev: "diag_smooth",
+    _combine_sqrt2: "sqrt2",
+    _combine_sqrt1: "sqrt1",
 }
-_K8 = ("filter", "smooth")  # element kinds K8 is instantiated for
 
 
 def _kind_name(combine) -> str:
@@ -74,16 +78,11 @@ def pallas_phase1_scan_plain(stack, elem: str, reverse=False):
 
 
 def pallas_phase1_scan(stack, elem: str, reverse=False):
-    """K8 wrapper; see pallas_phase1_scan_plain. elem: "filter" (14-comp,
-    `_combine2`) or "smooth" (9-comp, `_combine2_rev`) on CUDA; any ELEMS
-    kind on the CPU."""
+    """K8 wrapper; see pallas_phase1_scan_plain. elem: any ELEMS kind
+    ("filter" 14-comp, "smooth" 9, "diag_filter" 5, "diag_smooth" 3,
+    "sqrt2" 14, "sqrt1" 5)."""
     if not cf._on_cuda(stack):
         return pallas_phase1_scan_plain(stack, elem, reverse)
-    if elem not in _K8:
-        raise NotImplementedError(
-            f"the phase-1 kernel is not built for {elem!r} elements yet; "
-            "see ROADMAP.md queue 1"
-        )
     L, C, lanes = stack.shape
     if C != len(cf.ELEMS[elem].id_vals):
         raise ValueError(f"stack shape {tuple(stack.shape)} for {elem}")

@@ -26,6 +26,7 @@ import warnings
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one PyTorch thread a process)
 from test_torch_closed_form_fit import _bm, _ou_smooth
 from test_torch_ssm_laplace import _tracks
 
@@ -246,12 +247,18 @@ def test_confidence_intervals_match_jax(pair, how):
 
 
 def test_residuals_match_jax(pair):
+    """The closed-form residuals to 1e-12; the state-space ones (whitened
+    innovations, NaN where no update happens) to 1e-8 and the filtered
+    states (aest_all) to 1e-10 of their scale."""
     ps, js, _, _, _ = pair
     if ps.spec().kind == "ssm":
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            ps.residuals()
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            ps.filtered_states()
+        r, jr = ps.residuals(), np.asarray(js.residuals())
+        np.testing.assert_array_equal(np.isnan(r), np.isnan(jr))
+        np.testing.assert_allclose(r, jr, rtol=0, atol=1e-8, equal_nan=True)
+        want = np.asarray(js.filtered_states())
+        got = ps.filtered_states()
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
         return
     np.testing.assert_allclose(ps.residuals(), js.residuals(),
                                equal_nan=True, **TIGHT)
@@ -343,28 +350,41 @@ def test_post_coeff_raises_on_mismatched_blocks(pair):
         m.post_coeff(5, rng=np.random.default_rng(0))
 
 
-def test_kalman_impl_choices(pair):
-    """setup(kalman_impl=): "sequential" gives the kernel route's
-    log-likelihood; "parallel" and "sqrt" raise naming ROADMAP queue 1
-    item 5 on a state-space model; a mesh raises naming item 6."""
-    ps, _, kw, _, _ = pair
+def _refit_free(ps, kw):
+    """A fresh port model holding ps's fit (no refit)."""
     m = SDE(**kw, device="cpu", dtype=F64)
     m._fit_result = ps.out()
     m.update_coeff_fe(ps.coeff_fe())
     m.update_coeff_re(ps.coeff_re())
     m.update_lambda(ps.lambda_())
+    return m
+
+
+def test_kalman_impl_choices(pair):
+    """setup(kalman_impl=): "sequential" gives the kernel route's
+    log-likelihood; an unknown value raises ValueError; a mesh raises
+    naming ROADMAP queue 1 item 6."""
+    ps, _, kw, _, _ = pair
+    m = _refit_free(ps, kw)
     m.setup(kalman_impl="sequential")
     assert m.log_lik() == pytest.approx(ps.log_lik(), rel=1e-10)
-    for impl in ("parallel", "sqrt"):
-        if ps.spec().kind == "ssm":
-            with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-                m.setup(kalman_impl=impl)
-        else:
-            m.setup(kalman_impl=impl)
     with pytest.raises(ValueError):
         m.setup(kalman_impl="nope")
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         m.setup(mesh="auto")
+
+
+@pytest.mark.parametrize("impl", ["auto", "soa", "sequential", "parallel",
+                                  "sqrt"])
+def test_every_kalman_impl_gives_the_log_lik(pair, impl):
+    """Every kalman_impl of the JAX package builds, and its value route
+    (the fused kernels' plain versions, the per-dim sequential or
+    parallel filter, the square-root filter) gives the fit's log_lik
+    within 1e-10 relative; the closed-form models ignore it."""
+    ps, _, kw, _, _ = pair
+    m = _refit_free(ps, kw)
+    m.setup(kalman_impl=impl)
+    assert m.log_lik() == pytest.approx(ps.log_lik(), rel=1e-10)
 
 
 def test_fit_verbose_prints_the_message(capsys):

@@ -20,6 +20,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one PyTorch thread a process)
 
 from smoothsde_tpu import SDE as JaxSDE
 from smoothsde_tpu_torch import SDE

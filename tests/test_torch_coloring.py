@@ -19,6 +19,7 @@ import warnings
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one PyTorch thread a process)
 from test_coloring import _multi_animal_data
 
 from smoothsde_tpu import SDE as JaxSDE

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one PyTorch thread a process)
 
 from smoothsde_tpu.ops.kalman_soa import ctcrw_loglik_soa as jax_loglik
 from smoothsde_tpu_torch.ops import ctcrw_fused as cf

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one PyTorch thread a process)
 
 from smoothsde_tpu.ops import besseli as jbes
 from smoothsde_tpu.ops import densities as jden

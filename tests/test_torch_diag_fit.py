@@ -19,6 +19,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one PyTorch thread a process)
 
 from smoothsde_tpu import SDE as JaxSDE
 from smoothsde_tpu_torch import SDE
@@ -94,16 +95,34 @@ def test_from_reference_reproduces_joint_nllk(fits):
     assert got == pytest.approx(ref, rel=1e-10)
 
 
+N_OUT = 30  # one track of 30 steps
+_HS = np.tile(np.diag([0.04, 0.09]), (N_OUT, 1, 1))
+_ESEAL = {"h": np.full(N_OUT, 100.0), "R": np.full(N_OUT, 10.0),
+          "dep_fat": np.full(N_OUT, 60.0)}
+
+
 @pytest.mark.parametrize("typ,resp,kw", [
-    ("ESEAL_SSM", "y1", {}),
+    ("ESEAL_SSM", "y1", {"other_data": _ESEAL}),
     ("BM_SSM", ["y1", "y2"], {"other_data": {"P0": np.eye(2)}}),
-    ("OU_SSM", ["y1", "y2"], {"other_data": {"H": np.eye(2)}}),
-    ("CTCRW", ["y1", "y2"], {"other_data": {"H": np.eye(2)}}),
+    ("OU_SSM", ["y1", "y2"], {"other_data": {"H": _HS}}),
+    ("CTCRW", ["y1", "y2"], {"other_data": {"H": _HS}}),
 ])
 def test_outside_the_slice_raises(typ, resp, kw):
-    data = _simulate("BM_SSM", n_per=(30,))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SDE(data=data, type=typ, response=resp, device="cpu", **kw)
+    """Formerly refused (ROADMAP queue 1 item 5): ESEAL_SSM, a user P0
+    and a per-row H now build on the generic route, and their joint nllk
+    at the start equals the JAX package's to 1e-10 relative."""
+    data = _simulate("BM_SSM", n_per=(N_OUT,))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jb = JaxSDE(data=data, type=typ, response=resp, **kw).bundle()
+    pb = SDE(data=data, type=typ, response=resp, device="cpu",
+             dtype=torch.float64, **kw).bundle()
+    outer, inner = pb.packer.outer_init(), pb.packer.inner_init()
+    np.testing.assert_array_equal(outer, jb.packer.outer_init())
+    want = float(jb.joint_nllk(jb.packer.unpack(outer, inner)))
+    got = float(pb.joint_nllk(pb.packer.unpack(torch.tensor(outer),
+                                               torch.tensor(inner))))
+    assert got == pytest.approx(want, rel=1e-10)
 
 
 @pytest.mark.parametrize("typ,formulas", [

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one PyTorch thread a process)
 
 from smoothsde_tpu.ops.diag_fused import diag_ssm_loglik_fused as jax_fused
 from smoothsde_tpu.ops.kalman_soa import diag_ssm_loglik_soa as jax_soa

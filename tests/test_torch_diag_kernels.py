@@ -42,6 +42,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one PyTorch thread a process)
 
 from smoothsde_tpu.ops.kalman_soa import diag_ssm_loglik_soa as jax_soa
 from smoothsde_tpu_torch.ops import ctcrw_fused as cf

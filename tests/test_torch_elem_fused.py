@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one PyTorch thread a process)
 
 from smoothsde_tpu.ops import kalman_smooth as jks
 from smoothsde_tpu.ops.kalman_soa import _ctcrw_system as jax_system

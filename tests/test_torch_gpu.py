@@ -771,3 +771,144 @@ def test_laplace_log_det_partials_do_not_follow_history(cuda):
             for a, r in zip(first[1:], rev):
                 scale = float(r.abs().max())
                 assert float((a - r).abs().max()) <= 1e-10 * scale
+
+
+# the phase-1 kinds of the generic and special filters: the scalar-state
+# elements and the square-root ones
+SLICE_K8 = ("diag_filter", "diag_smooth", "sqrt2", "sqrt1")
+
+
+def _slice_stacks(d, n, seed, cuda):
+    """Real (L, C, lanes) stacks of the four kinds over _data(d, n),
+    f64 on the card (chip_smoke.slice_elements)."""
+    import chip_smoke
+
+    obs, times, ids, par = _data(d, n, seed)
+    pt = torch.tensor(par, device=cuda)
+    els = {**chip_smoke.slice_elements(torch, "CTCRW", pt, 0.2, obs, times,
+                                       ids),
+           **chip_smoke.slice_elements(torch, "OU_SSM", pt, 0.2, obs, times,
+                                       ids)}
+    p = cf.plan(d, n)
+    return {k: chip_smoke.elem_stack(torch, k, els[k], p) for k in SLICE_K8}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,n", [(1, 80), (1, 4064), (1, 4096), (1, 4128),
+                                 (2, 5000), (3, 20001)])
+def test_phase1_and_prefix_for_slice_kinds_match_plain(cuda, d, n):
+    """K8 for the scalar-state and square-root kinds and K2 for `sqrt2` /
+    `sqrt1`, both directions, lanes below, at and across K8's 128-thread
+    CUDA block: f64 within 1e-10 of the output's scale, f32 (against the
+    f64 plain version) within 1e-4 (K8) and 1e-5 (K2)."""
+    stacks = _slice_stacks(d, n, 80 + d, cuda)
+    errs = {}
+    for kind, st in stacks.items():
+        for rev in (False, True):
+            ref = su.pallas_phase1_scan_plain(st, kind, rev)
+            pairs = [(f"K8 {kind} {rev}", su.pallas_phase1_scan(st, kind, rev),
+                      su.pallas_phase1_scan(st.float(), kind, rev), ref, 1e-4)]
+            if kind in ("sqrt2", "sqrt1"):
+                tot = ref[-1].contiguous()
+                pairs.append((f"K2 {kind} {rev}",
+                              cf.block_prefix(tot, d, kind, rev),
+                              cf.block_prefix(tot.float(), d, kind, rev),
+                              cf.block_prefix_plain(tot, d, kind, rev), 1e-5))
+            for name, g64, g32, r, bar32 in pairs:
+                assert bool(torch.isfinite(g64).all()), name
+                assert bool(torch.isfinite(g32).all()), name
+                scale = max(1.0, float(r.abs().max()))
+                e64 = float((g64 - r).abs().max()) / scale
+                e32 = float((g32.double() - r).abs().max()) / scale
+                errs[name] = (e64, e32)
+                assert e64 <= 1e-10 and e32 <= bar32, (name, e64, e32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fn", ["ctcrw_sqrt", "ou_sqrt", "ou_soa"])
+def test_pallas_scans_of_slice_kinds_match_blocked(cuda, fn):
+    """`ctcrw_loglik_sqrt`, `diag_ssm_loglik_sqrt` and
+    `diag_ssm_loglik_soa` with scan="pallas" (K8 and K2 of their kinds,
+    each launched once) against "blocked", f64, 1e-10 relative; a
+    gradient through "pallas" raises (the kernels are forward-only)."""
+    from smoothsde_tpu_torch.ops.kalman_soa import diag_ssm_loglik_soa
+    from smoothsde_tpu_torch.ops.kalman_sqrt import (
+        ctcrw_loglik_sqrt,
+        diag_ssm_loglik_sqrt,
+    )
+
+    obs, times, ids, par = _data(2, 50000, 21)
+    call = {
+        "ctcrw_sqrt": (lambda p, s: ctcrw_loglik_sqrt(p, obs, times, ids, 0.2,
+                                                      scan=s),
+                       ("phase1_scan_sqrt2", "block_prefix_sqrt2")),
+        "ou_sqrt": (lambda p, s: diag_ssm_loglik_sqrt(
+            "OU_SSM", p, obs, times, ids, 0.2, scan=s),
+            ("phase1_scan_sqrt1", "block_prefix_sqrt1")),
+        "ou_soa": (lambda p, s: diag_ssm_loglik_soa(
+            "OU_SSM", p, obs, times, ids, 0.2, scan=s),
+            ("phase1_scan_diag_filter", "block_prefix_diag_filter")),
+    }
+    f, path = call[fn]
+    p = torch.tensor(par, device=cuda)
+    want = float(f(p, "blocked"))
+    cf.reset_launches()
+    got = float(f(p, "pallas"))
+    assert got == pytest.approx(want, rel=1e-10)
+    assert {k: v for k, v in cf.LAUNCHES.items() if v} == \
+        {k: 1 for k in path}
+    with pytest.raises(RuntimeError, match="forward-only"):
+        f(p.clone().requires_grad_(True), "pallas")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("other", ["H", "P0", "eseal"])
+def test_generic_route_on_card_matches_cpu(cuda, other):
+    """The generic route (user H, user P0, ESEAL_SSM) on the card (the
+    parallel full-state filter, "auto") against the same model on the
+    CPU (the sequential filter), f64, at the start point: the joint nllk
+    to 1e-10 relative and its gradient to 1e-8 of the largest component;
+    the filtered states (1e-10 of the largest) and the innovations
+    (1e-8) read off the parallel filter's moments."""
+    from smoothsde_tpu_torch import SDE
+    from smoothsde_tpu_torch.infer.fit import make_val_grad
+
+    obs, times, ids, _ = _data(2, 3000, 31)
+    rng = np.random.default_rng(4)
+    if other == "eseal":
+        n = len(ids)
+        kw = dict(data={"ID": ids, "time": np.arange(n, dtype=float),
+                        "z": -0.5 + 0.01 * np.cumsum(rng.normal(size=n))},
+                  type="ESEAL_SSM", response="z", par0=[0.0, 0.3],
+                  other_data={"h": rng.uniform(80, 120, size=n),
+                              "R": rng.uniform(9, 11, size=n),
+                              "dep_fat": np.full(n, 60.0)})
+    else:
+        H = np.einsum("ni,ij->nij", rng.uniform(0.01, 0.05, size=(len(ids),
+                                                                  2)),
+                      np.eye(2))
+        kw = dict(data={"ID": ids, "time": times, "y1": obs[:, 0],
+                        "y2": obs[:, 1]}, type="CTCRW",
+                  response=["y1", "y2"], par0=[0.0, 0.0, 2.0, 0.8],
+                  other_data={"H": H} if other == "H" else
+                  {"P0": np.diag([1.0, 5.0, 2.0, 8.0])})
+    gpu = SDE(**kw, device="cuda", dtype=torch.float64).bundle()
+    cpu = SDE(**kw, device="cpu", dtype=torch.float64).bundle()
+    assert (gpu.twin, cpu.twin) == ("parallel", "sequential")
+    x = gpu.packer.outer_init()
+    v, g, _ = make_val_grad(gpu)(x)
+    rv, rg, _ = make_val_grad(cpu)(x)
+    assert v == pytest.approx(rv, rel=1e-10)
+    np.testing.assert_allclose(g, rg, rtol=0, atol=1e-8 * np.abs(rg).max())
+    with torch.no_grad():
+        fg = gpu.packer.unpack(torch.tensor(x, device=cuda))
+        fc = cpu.packer.unpack(torch.tensor(x))
+        s, rs = gpu.filter_states(fg).cpu(), cpu.filter_states(fc)
+        assert float((s - rs).abs().max()) <= 1e-10 * float(rs.abs().max())
+        for a, b in zip(gpu.innovations(fg), cpu.innovations(fc)):
+            a = a.cpu()
+            if a.dtype == torch.bool:
+                assert torch.equal(a, b)
+            else:
+                assert float((a - b).abs().max()) <= 1e-8 * max(
+                    1.0, float(b.abs().max()))

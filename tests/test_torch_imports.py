@@ -59,14 +59,15 @@ def test_api_tail_modules_are_guarded(rel):
     assert PKG / rel in FILES
 
 
-def test_api_tail_modules_load_neither_jax_nor_the_jax_package():
-    """Importing the new modules (and the SDE that uses them) in a fresh
-    interpreter loads no module of jax, jaxlib or smoothsde_tpu."""
+def _load_in_fresh_interpreter(rels):
+    """Import the modules (and the SDE that uses them) in a fresh
+    interpreter; fail if any module of jax, jaxlib or smoothsde_tpu got
+    loaded."""
     import subprocess
     import sys
 
     mods = ["smoothsde_tpu_torch." + r[:-3].replace("/", ".")
-            for r in API_TAIL] + ["smoothsde_tpu_torch.api.sde"]
+            for r in rels] + ["smoothsde_tpu_torch.api.sde"]
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -77,3 +78,22 @@ def test_api_tail_modules_load_neither_jax_nor_the_jax_package():
     )
     subprocess.run([sys.executable, "-c", code], check=True,
                    cwd=str(PKG.parent))
+
+
+def test_api_tail_modules_load_neither_jax_nor_the_jax_package():
+    _load_in_fresh_interpreter(API_TAIL)
+
+
+# the generic and special filters: the full-state and parallel filters,
+# the square-root filter, the full-state step builders, the objective
+FILTERS = ("ops/kalman.py", "ops/kalman_sqrt.py", "models/ssm.py",
+           "infer/objective.py")
+
+
+@pytest.mark.parametrize("rel", FILTERS)
+def test_filter_modules_are_guarded(rel):
+    assert PKG / rel in FILES
+
+
+def test_filter_modules_load_neither_jax_nor_the_jax_package():
+    _load_in_fresh_interpreter(FILTERS)

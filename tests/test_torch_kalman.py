@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one PyTorch thread a process)
 
 from smoothsde_tpu.models import ssm as jssm
 from smoothsde_tpu.ops import kalman as jk

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one PyTorch thread a process)
 from test_laplace import _analytic_marginal, _bm_re_setup
 
 from smoothsde_tpu.infer.laplace import make_laplace as jax_make_laplace

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one PyTorch thread a process)
 from test_torch_closed_form_fit import _bm, _ou_smooth
 
 from smoothsde_tpu import SDE as JaxSDE

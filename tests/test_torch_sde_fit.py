@@ -18,6 +18,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one PyTorch thread a process)
 
 from smoothsde_tpu import SDE as JaxSDE
 from smoothsde_tpu_torch import SDE
@@ -95,13 +96,27 @@ def test_from_reference_reproduces_joint_nllk(fits):
 
 
 def test_outside_the_slice_raises():
+    """Formerly refused (ROADMAP queue 1 item 5): a CTCRW with a user H,
+    given in the reference's (m, m, n) layout, or a user P0 builds on the
+    generic route (H fixes sigma_obs) and gives the JAX package's joint
+    nllk at the start to 1e-10 relative; only a mesh still raises."""
     data = _simulate(n_per=(30,))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SDE(data=data, type="ESEAL_SSM", response="y1", device="cpu")
-    for key in ("H", "P0"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            SDE(data=data, type="CTCRW", response=["y1", "y2"],
-                device="cpu", other_data={key: np.eye(2)})
+    H = np.tile(np.diag([0.01, 0.02])[:, :, None], (1, 1, 30))
+    for other in ({"H": H}, {"P0": np.diag([1.0, 4.0, 2.0, 8.0])}):
+        kw = dict(data=data, type="CTCRW", response=["y1", "y2"],
+                  other_data=other)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            jb = JaxSDE(**kw).bundle()
+        pb = SDE(**kw, device="cpu", dtype=torch.float64).bundle()
+        outer = pb.packer.outer_init()
+        assert pb.packer.n_outer == jb.packer.n_outer
+        want = float(jb.joint_nllk(jb.packer.unpack(outer)))
+        got = float(pb.joint_nllk(pb.packer.unpack(torch.tensor(outer))))
+        assert got == pytest.approx(want, rel=1e-10)
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        SDE(data=data, type="CTCRW", response=["y1", "y2"],
+            device="cpu").fit(mesh="auto")
 
 
 def test_smooth_marginal_matches_jax():

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one PyTorch thread a process)
 
 from smoothsde_tpu.ops import kalman_smooth as jks
 from smoothsde_tpu.ops import kalman_soa as jka

@@ -7,7 +7,8 @@ and the BM_SSM one under REML).
 Estimates within 1e-4, nllk within 1e-8 relative, bhat within 1e-4,
 `lambda_()`, `coeff_re()` and `par()` as the JAX package's, and the
 joint precision (`torch.func.hessian` of the forward-mode twin) within
-1e-3 of the JAX sdreport's.
+1e-3 of the JAX sdreport's. This file holds the CTCRW case; the others
+are in test_torch_ssm_fit_bm.py, _ou.py and _reml.py.
 """
 
 import warnings
@@ -15,6 +16,7 @@ import warnings
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one PyTorch thread a process)
 from test_torch_ssm_laplace import CASES, _kw
 
 from smoothsde_tpu import SDE as JaxSDE
@@ -23,9 +25,8 @@ from smoothsde_tpu_torch import SDE
 F64 = torch.float64
 
 
-@pytest.fixture(scope="module", params=sorted(CASES))
-def fits(request):
-    case = request.param
+def fit_pair(case):
+    """(JAX model, JAX fit, port model, port fit) of a CASES entry."""
     kw = _kw(case)
     crit = CASES[case][3]
     with warnings.catch_warnings():
@@ -37,7 +38,7 @@ def fits(request):
     return js, jr, ps, pr
 
 
-def test_fit_matches_jax(fits):
+def check_fit(fits):
     js, jr, ps, pr = fits
     assert jr.convergence == 0 and pr.convergence == 0
     assert pr.par_names == list(jr.par_names)
@@ -53,10 +54,26 @@ def test_fit_matches_jax(fits):
                                rtol=1e-4, atol=1e-6)
 
 
-def test_joint_precision_matches_jax(fits):
+def check_joint_precision(fits):
     _, jr, _, pr = fits
     assert pr.joint_names == list(jr.joint_names)
     Q, jQ = pr.joint_precision, np.asarray(jr.joint_precision)
     assert np.all(np.isfinite(Q)) and np.array_equal(Q, Q.T)
     np.testing.assert_allclose(Q, jQ, rtol=1e-3,
                                atol=1e-6 * np.abs(jQ).max())
+
+
+# one case a file (this one, test_torch_ssm_fit_bm.py, _ou.py, _reml.py):
+# each pair of fits takes minutes on the CPU, and xdist's loadfile puts
+# a file on one worker
+@pytest.fixture(scope="module", params=["ctcrw_tau_re"])
+def fits(request):
+    return fit_pair(request.param)
+
+
+def test_fit_matches_jax(fits):
+    check_fit(fits)
+
+
+def test_joint_precision_matches_jax(fits):
+    check_joint_precision(fits)

@@ -14,11 +14,12 @@ bs='re')`, OU_SSM with `tau ~ s(x, k=5)`, and the BM_SSM one under REML.
 - the f32 marginal stays f32 (no promotion under jvp-of-grad) and within
   1e-4 relative of f64's;
 - config 4's golden point (tests/golden/config4.npz, 8 x 250 steps): the
-  joint nllk within 1e-8 and the marginal within test_golden.py's bars.
+  joint nllk within 1e-8 and the marginal within test_golden.py's bars
+  (test_torch_ssm_laplace_marginal.py, with the CTCRW and REML
+  marginals).
 """
 
 import os
-import sys
 import warnings
 
 import jax
@@ -26,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one PyTorch thread a process)
 
 from smoothsde_tpu import SDE as JaxSDE
 from smoothsde_tpu.infer.laplace import make_laplace as jax_make_laplace
@@ -181,8 +183,15 @@ def marginal_pair(kw, reml=False, seed=2):
     return float(jv), np.asarray(jg), float(v.detach()), g.numpy()
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+# the other two cases and config 4's golden point are in
+# test_torch_ssm_laplace_marginal.py (xdist's loadfile puts a file on one
+# worker, and each marginal takes a minute or two on the CPU)
+@pytest.mark.parametrize("case", ["bm_ssm_sigma_re", "ou_ssm_tau_smooth"])
 def test_marginal_matches_jax(case):
+    check_marginal(case)
+
+
+def check_marginal(case):
     assert_marginals_match(*marginal_pair(_kw(case),
                                           CASES[case][3] == "REML"))
 
@@ -207,31 +216,3 @@ def test_f32_marginal_stays_f32():
         assert v.dtype == bhat.dtype == g.dtype == dtype
         outs[dtype] = float(v.detach())
     assert outs[torch.float32] == pytest.approx(outs[F64], rel=1e-4)
-
-
-def test_config4_golden_point():
-    """tests/golden/config4.npz (the JAX package's frozen point): the
-    joint nllk within 1e-8 (1 + |v|), the marginal within 1e-7 (1 + |v|)
-    and its gradient within rtol 1e-6, atol 1e-7 (test_golden.py)."""
-    sys.path.insert(0, ROOT)
-    import chip_smoke
-
-    fx = np.load(os.path.join(ROOT, "tests", "golden", "config4.npz"))
-    kw, _ = chip_smoke.config4()
-    sde = SDE(**kw, device="cpu", dtype=F64)
-    b = sde.setup()
-    np.testing.assert_array_equal(np.asarray(sde._design.stacked_X_re()),
-                                  fx["X_re"])
-    outer, inner = torch.tensor(fx["outer"]), torch.tensor(fx["inner"])
-    joint = float(b.joint_nllk(b.packer.unpack(outer, inner)))
-    want = float(fx["joint_nllk"])
-    assert abs(joint - want) < 1e-8 * (1 + abs(want))
-    m = make_laplace(b.joint_nllk, b.packer, joint_nllk_ad=b.joint_nllk_ad,
-                     hess_plan=b.hess_plan)
-    xt = outer.clone().requires_grad_(True)
-    v, _ = m(xt, torch.tensor(b.packer.inner_init()))
-    (g,) = torch.autograd.grad(v, xt)
-    want = float(fx["marginal_nllk"])
-    assert abs(float(v.detach()) - want) < 1e-7 * (1 + abs(want))
-    np.testing.assert_allclose(g.numpy(), fx["marginal_grad"], rtol=1e-6,
-                               atol=1e-7)
