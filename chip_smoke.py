@@ -130,6 +130,20 @@ non-zero before the final line:
      f32, a1 / log_a2 pinned: with priors=None mu, sigma, tau at
      TestESEAL.test_recovery's bars; with the default priors convergence
      and the f32 nllk within 1e-4 of f64's;
+     3q. sharding, 4 shards on cuda:0 (parallel/): the 5a CTCRW and
+     the 3b OU_SSM fitted with their time axis in 4 chunks (f32; gates:
+     convergence, the truth as phases 3 / 3b, the nllk within 1e-4 of
+     the unsharded fit's; at the start f64 sharded against unsharded
+     kernels 1e-10 / 1e-8 of the largest gradient component and f32
+     against the f64 plain version 1e-4 / 1e-4 of |nllk|; each of the
+     six kernels launched once a chunk per nllk+grad; prints both walls,
+     device busy and the stitch's own device time), config 4 by tracks
+     (f32 fit: convergence, nllk within 1e-4 of 3i's; f64 joint nllk
+     and twin at the golden point against unsharded, 1e-10 / 1e-8), 3k's
+     BM by tracks
+     (nllk within 1e-4 of 3k's) and 3p's ESEAL data on the time-sharded
+     full-state filter (f64 value and gradient against the unsharded
+     route, 1e-10 / 1e-8);
      2f. (run after 2e) K8 alone for the scalar-state and square-root
      kinds (diag_filter, diag_smooth, sqrt2, sqrt1), both directions,
      d in {1, 2, 3}, lanes around its 128-thread block: f64 within 1e-10
@@ -152,7 +166,9 @@ before that a JSON object {"kernels": [...]} (per kernel: launches on its
 main path, f64 error against the plain version, ms and plain_ms from CUDA
 events, device_ms from the profiler, bytes and bound_us / bound_ms /
 bound_by from `bound`, share = bound_ms / device_ms, library_ms null; the
-CTCRW kernels also ms_f64 and device_ms_f64), and the last line
+CTCRW kernels also ms_f64 and device_ms_f64; the CTCRW and scalar-state
+kernels their launches on 3q's time-sharded fit and per sharded
+nllk+grad), and the last line
 {"ok": true, "device": {...}}. It imports nothing of JAX.
 """
 
@@ -1188,14 +1204,14 @@ def phase_audit(torch):
     return out
 
 
-def fit_on_card(torch, label, kw, dtype):
-    """Fit a model with `SDE(**kw, device="cuda", dtype=dtype).fit()`;
-    no exception is caught. Returns (sde, result, wall s)."""
+def fit_on_card(torch, label, kw, dtype, **fit_kw):
+    """Fit a model with `SDE(**kw, device="cuda", dtype=dtype).fit(
+    **fit_kw)`; no exception is caught. Returns (sde, result, wall s)."""
     from smoothsde_tpu_torch import SDE
 
     t = time.time()
     sde = SDE(**kw, device="cuda", dtype=dtype)
-    res = sde.fit()
+    res = sde.fit(**fit_kw)
     torch.cuda.synchronize()
     wall = time.time() - t
     log(f"[{label}] {kw['type']} fit in {str(dtype)[6:]}: {wall:.2f} s, "
@@ -1408,7 +1424,7 @@ def phase_config4(torch, card):
     vg64 = make_val_grad(b64)
     gv, gg, _ = vg64(fx["outer"])
     want_v, want_g = float(fx["marginal_nllk"]), fx["marginal_grad"]
-    golden = {"marginal_nllk": gv, "want": want_v,
+    golden = {"marginal_nllk": gv, "want": want_v, "grad": gg.tolist(),
               "abs_err": abs(gv - want_v),
               "grad_max_abs_err": float(np.max(np.abs(gg - want_g)))}
     check(abs(gv - want_v) < 1e-7 * (1 + abs(want_v)),
@@ -1462,6 +1478,7 @@ def phase_config4(torch, card):
            "s_per_marginal_eval_fit": wall / res.counts["evals"],
            "s_per_marginal_eval_optimum": s_eval,
            "par": res.par.tolist(), "par_f64": res64.par.tolist(),
+           "se_f64": se64.tolist(), "smoothing": smoothing.tolist(),
            "nllk": res.value, "nllk_f64": res64.value, "nllk_rel": ev,
            "par_f32_minus_f64_max_abs": dpar,
            "par_f32_minus_f64_over_se64": dse.tolist(),
@@ -1811,7 +1828,7 @@ def phase_colored(torch, card):
     out = {"card": card, "n_colors": plan["n_colors"], "p_re": plan["p"],
            "fit_wall_s": wall, "evals": res.counts["evals"],
            "via": res.convergence_via, "median_sigma": med,
-           "nllk": res.value}
+           "nllk": res.value, "par": res.par.tolist()}
     log(f"[3k] {json.dumps(out)}")
     return out
 
@@ -2610,6 +2627,285 @@ def phase_eseal(torch, card):
     return out
 
 
+SHARDS = 4  # phase 3q's shards, all on cuda:0
+# calls a 3q profile averages: the profiler's own processing grows with
+# the ~1,500 operations of a sharded call
+PROFILE_REPS = 3
+
+
+def bundle_value_grad(torch, bundle, x, fn=None):
+    """(joint nllk, its gradient in x) of a bundle: x the outer vector
+    (the inner coefficients at their initial values) or the outer and
+    inner vectors concatenated; fn: the bundle's joint_nllk unless
+    given."""
+    fn = fn or bundle.joint_nllk
+    xt = torch.tensor(x, dtype=bundle.dtype, device=bundle.device,
+                      requires_grad=True)
+    n_out = bundle.packer.n_outer
+    v = fn(bundle.packer.unpack(xt[:n_out], xt[n_out:] if len(x) > n_out
+                                else None))
+    (g,) = torch.autograd.grad(v, xt)
+    return float(v.detach()), g.double().cpu().numpy()
+
+
+def stitch_device_ms(torch, d, sizes, dtype, elems):
+    """Device ms per nllk+grad of the stitch's own operations, the ones
+    the time-sharded cores run between K2 and K1b / K3b (D1b / D3b):
+    each chunk's total, the exclusive prefixes and suffixes of the totals,
+    and their fold into every block's prefix / suffix, for the forward and
+    the backward element kinds `elems`, at chunks of `sizes` steps
+    (profiled alone, on identity elements of the real shapes; the
+    arithmetic does not depend on the values)."""
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+
+    work = []
+    for elem, reverse in zip(elems, (False, True)):
+        ids = cf.ELEMS[elem].id_vals
+        excl = [torch.tensor(ids, dtype=dtype, device="cuda")[:, None].expand(
+            len(ids), cf.plan(d, m).lanes).contiguous() for m in sizes]
+        work.append((elem, reverse, excl))
+
+    def fn():
+        for elem, reverse, excl in work:
+            totals = cf.chunk_totals(excl, excl, d, elem, reverse,
+                                     excl[0].device)
+            cf.seed_chunks(cf.stitch_seeds(totals, elem, reverse), excl, d,
+                           elem)
+
+    stats = {}
+    _, busy, _ = profile_device_ms(fn, PROFILE_REPS, torch, stats)
+    return busy, stats["device_ops"]
+
+
+def time_sharded_case(torch, card, label, kw, truth, flat, names, elems):
+    """Phase 3q-a / 3q-b: `kw`'s 1M-step model fitted with the time axis
+    cut into SHARDS chunks on cuda:0, in f32. flat: the unsharded phase's
+    f32 and f64 bundles ("b32", "b64"), fit result ("res") and wall
+    ("wall_s"), and the f64 plain version's (value, gradient) at the
+    start ("plain_start"). Gates: convergence; the truth by parameter
+    name (mus within 0.05, the rest within 5%); the nllk within 1e-4 relative of the
+    unsharded fit's; at the start the f64 sharded kernels against the f64
+    unsharded kernel route (value 1e-10 relative, gradient 1e-8 of its
+    largest component) and the f32 sharded kernels against the f64 plain
+    version (1e-4 relative, gradient 1e-4 of |nllk|); each kernel of
+    `names` launched once a chunk per nllk+grad. Printed: the sharded and
+    unsharded nllk+grad walls (median and p90 of 110), device busy, and
+    the stitch's own device time."""
+    from smoothsde_tpu_torch import SDE
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+    from smoothsde_tpu_torch.parallel.batching import make_mesh, shard_sizes
+
+    t_case = time.time()
+    b32_flat, b64_flat, res_flat = flat["b32"], flat["b64"], flat["res"]
+    pv64, pg64 = flat["plain_start"]
+    mesh = make_mesh(SHARDS, "time", device="cuda:0")
+    cf.reset_launches()
+    t = time.time()
+    sde = SDE(**kw, device="cuda")
+    res = sde.fit(mesh=mesh, mesh_axis="time")
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    fit_launches = {k: cf.LAUNCHES[k] for k in names}
+    est = dict(zip(sde.formulas(), (float(v) for v in sde.par(t=0)[0])))
+    log(f"[{label}] {kw['type']} fit over {SHARDS} time chunks: {wall:.2f} "
+        f"s, {res.counts['evals']} evals, via {res.convergence_via}, "
+        f"estimates {json.dumps(est)}, nllk {res.value:.4f} (unsharded "
+        f"{res_flat.value:.4f}); launches {fit_launches}")
+    check(res.convergence == 0, f"{label}: sharded fit did not converge: "
+          f"{res.message}")
+    for nm, want in truth.items():
+        got = est[nm]
+        check(abs(got - want) <= 0.05 if nm.startswith("mu")
+              else abs(got - want) / want < 0.05,
+              f"{label}: {nm} {got} vs {want}")
+    ev_fit = abs(res.value - res_flat.value) / abs(res_flat.value)
+    check(ev_fit <= 1e-4, f"{label}: sharded nllk {res.value} vs unsharded "
+          f"{res_flat.value}: rel {ev_fit:.3e}")
+
+    bsh32 = sde.bundle()
+    bsh64 = SDE(**kw, device="cuda", dtype=torch.float64).setup(
+        mesh=mesh, mesh_axis="time")
+    x0 = b32_flat.packer.outer_init()
+    v64, g64 = bundle_value_grad(torch, bsh64, x0)
+    fv64, fg64 = bundle_value_grad(torch, b64_flat, x0)
+    v32, g32 = bundle_value_grad(torch, bsh32, x0)
+    acc = {"f64_vs_unsharded_nllk_rel": abs(v64 - fv64) / abs(fv64),
+           "f64_vs_unsharded_grad_over_max": float(
+               np.max(np.abs(g64 - fg64)) / np.max(np.abs(fg64))),
+           "f32_vs_f64_plain_nllk_rel": abs(v32 - pv64) / abs(pv64),
+           "f32_vs_f64_plain_grad_over_nllk": float(
+               np.max(np.abs(g32 - pg64)) / abs(pv64))}
+    log(f"[{label}] at the start: {json.dumps(acc)}")
+    check(acc["f64_vs_unsharded_nllk_rel"] <= 1e-10
+          and acc["f64_vs_unsharded_grad_over_max"] <= 1e-8,
+          f"{label}: f64 sharded vs unsharded kernels: {acc}")
+    check(acc["f32_vs_f64_plain_nllk_rel"] <= 1e-4
+          and acc["f32_vs_f64_plain_grad_over_nllk"] <= 1e-4,
+          f"{label}: f32 sharded vs f64 plain: {acc}")
+
+    x = res.par
+    cf.reset_launches()
+    bundle_value_grad(torch, bsh32, x)
+    per_eval = {k: cf.LAUNCHES[k] for k in names}
+    for nm in names:
+        check(per_eval[nm] == SHARDS, f"{label}: {nm} launched "
+              f"{per_eval[nm]} times a nllk+grad, not once per chunk")
+    walls = {tag: wall_ms(lambda b=b: bundle_value_grad(torch, b, x), 110, 5)
+             for tag, b in (("sharded", bsh32), ("unsharded", b32_flat))}
+    t_prof = time.time()
+    prof = {}
+    for tag, b in (("sharded", bsh32), ("unsharded", b32_flat)):
+        dev_ms, busy, pwall = profile_device_ms(
+            lambda b=b: bundle_value_grad(torch, b, x), PROFILE_REPS, torch)
+        prof[tag] = {"device_busy_ms": busy, "wall_ms": pwall,
+                     "kernels_ms": {k: dev_ms[k] for k in names}}
+    sizes = shard_sizes(len(kw["data"]["ID"]), SHARDS)
+    stitch_ms, stitch_ops = stitch_device_ms(
+        torch, len(kw["response"]) if isinstance(kw["response"], list)
+        else 1, sizes, torch.float32, elems)
+    out = {"card": card, "shards": SHARDS, "fit_wall_s": wall,
+           "fit_wall_s_unsharded": flat["wall_s"],
+           "evals": res.counts["evals"],
+           "via": res.convergence_via, "estimates": est, "nllk": res.value,
+           "nllk_unsharded": res_flat.value, "nllk_rel": ev_fit,
+           "accuracy_start": acc, "launches_fit": fit_launches,
+           "launches_per_nllk_grad": per_eval,
+           "nllk_grad_ms": walls, "profile": prof,
+           "stitch_device_ms": stitch_ms, "stitch_device_ops": stitch_ops,
+           "stitch_share_of_busy": stitch_ms / prof["sharded"][
+               "device_busy_ms"],
+           "wall_ratio_sharded_to_unsharded": walls["sharded"]["median"]
+           / walls["unsharded"]["median"],
+           "case_wall_s": time.time() - t_case,
+           "profiles_wall_s": time.time() - t_prof}
+    log(f"[{label}] {json.dumps(out)}")
+    return out
+
+
+def phase_sharding(torch, card, cases, c4, colored):
+    """Phase 3q: sharded fits on cuda:0 (SHARDS shards on the one card).
+    3q-a, 3q-b: the time-sharded 5a CTCRW and 3b OU_SSM
+    (`time_sharded_case`; each case (label, SDE keywords, truth by
+    parameter name, the unsharded phase's results, the kernels, the
+    element kinds)). 3q-c: config 4 with its tracks in SHARDS
+    shards, f32: convergence and the nllk within 1e-4 relative of 3i's f32
+    fit; f64: convergence and the estimates within 0.1 of 3i's f64
+    standard errors of 3i's f64 fit (1 for the log smoothing parameter,
+    as 3i); in f64 at tests/golden/config4.npz's outer point (inner at
+    their initial values + 0.05) the sharded joint nllk (the kernels) and
+    its twin against the unsharded ones, value 1e-10 relative and
+    gradient in the outer and inner vectors 1e-8 of its largest
+    component. The f32 estimates' distance from 3i's f64 fit in its
+    standard errors is printed, not gated: the JAX package's f32 stopping
+    rule (max |g| < 1e-3 (1 + |nllk|), 3.2 here) lets the sharded fit's
+    rounding path stop 0.31 standard errors off (PERF.md §6), as it does
+    3o's f32 fit; the f64 fit (stopping at 1e-6) is the witness free of
+    that rule.
+    3q-d: 3k's 40 x 30 BM with its tracks sharded, f32: convergence, the
+    nllk at the optimum within 1e-4 relative of 3k's. 3q-e: 3p's ESEAL
+    data (16 x 1,000 dives, one time axis over the tracks), f64: the
+    time-sharded full-state filter's value and gradient at the start
+    against the unsharded route's, 1e-10 / 1e-8 of the largest
+    component."""
+    from smoothsde_tpu_torch import SDE
+    from smoothsde_tpu_torch.parallel.batching import make_mesh
+
+    t0 = time.time()
+    out = {}
+    for tag, (label, kw, truth, flat, names, elems) in cases.items():
+        log(f"[{label}] time-sharded {kw['type']}, {SHARDS} chunks")
+        out[tag] = time_sharded_case(torch, card, label, kw, truth, flat,
+                                     names, elems)
+
+    t_c = time.time()
+    tracks = make_mesh(SHARDS, "tracks", device="cuda:0")
+    kw4, _ = config4()
+    sde4, res4, wall4 = fit_on_card(torch, "3q-c", kw4, torch.float32,
+                                    mesh=tracks)
+    dse = (res4.par - np.asarray(c4["par_f64"])) / np.asarray(c4["se_f64"])
+    ev4 = abs(res4.value - c4["nllk"]) / abs(c4["nllk"])
+    check(res4.convergence == 0 and ev4 <= 1e-4,
+          f"3q-c: sharded f32 fit: {res4.message}, nllk {res4.value} vs "
+          f"3i's {c4['nllk']}")
+    _, res64, wall64 = fit_on_card(torch, "3q-c", kw4, torch.float64,
+                                   mesh=tracks)
+    dse64 = (res64.par - np.asarray(c4["par_f64"])) / np.asarray(
+        c4["se_f64"])
+    smoothing = np.asarray(c4["smoothing"])
+    check(res64.convergence == 0 and np.all(np.isfinite(dse64))
+          and float(np.max(np.abs(dse64[~smoothing]))) <= 0.1
+          and float(np.max(np.abs(dse64[smoothing]))) <= 1.0,
+          f"3q-c: sharded f64 fit: {res64.message}, estimates "
+          f"{res64.par.tolist()}: {dse64.tolist()} of 3i's f64 standard "
+          f"errors from 3i's f64 fit")
+    fx = np.load(os.path.join(HERE, "tests", "golden", "config4.npz"))
+    e64 = {}
+    b64s = [SDE(**kw4, device="cuda", dtype=torch.float64).setup(mesh=m)
+            for m in (tracks, None)]
+    z = np.concatenate([fx["outer"], b64s[1].packer.inner_init() + 0.05])
+    for route in ("joint_nllk", "joint_nllk_ad"):
+        (v, g), (fv, fg) = (bundle_value_grad(
+            torch, b, z, lambda full, b=b, route=route: getattr(b, route)(
+                full)) for b in b64s)
+        e64[route] = {"nllk_rel": abs(v - fv) / abs(fv),
+                      "grad_over_max": float(np.max(np.abs(g - fg))
+                                             / np.max(np.abs(fg)))}
+        check(e64[route]["nllk_rel"] <= 1e-10
+              and e64[route]["grad_over_max"] <= 1e-8,
+              f"3q-c: f64 sharded {route} at the golden point vs "
+              f"unsharded: {e64[route]}")
+    out["config4_tracks"] = {
+        "fit_wall_s": wall4, "fit_wall_s_unsharded": c4["fit_wall_s"],
+        "evals": res4.counts["evals"], "via": res4.convergence_via,
+        "nllk": res4.value, "nllk_unsharded": c4["nllk"], "nllk_rel": ev4,
+        "par_minus_f64_over_se64": dse.tolist(),
+        "f64_fit_wall_s": wall64, "f64_evals": res64.counts["evals"],
+        "nllk_f64": res64.value, "nllk_f64_unsharded": c4["nllk_f64"],
+        "par_f64_minus_f64_over_se64": dse64.tolist(),
+        "f64_vs_unsharded_at_golden": e64, "case_wall_s": time.time() - t_c}
+    log(f"[3q-c] {json.dumps(out['config4_tracks'])}")
+
+    kwk = dict(data=multi_animal_bm(), type="BM", response="z",
+               formulas={"mu": "~1", "sigma": "~s(ID, bs='re')"},
+               par0=[0.0, 1.0])
+    _, resk, wallk = fit_on_card(torch, "3q-d", kwk, torch.float32,
+                                 mesh=tracks)
+    ev = abs(resk.value - colored["nllk"]) / abs(colored["nllk"])
+    check(resk.convergence == 0 and ev <= 1e-4,
+          f"3q-d: sharded BM nllk {resk.value} vs 3k's {colored['nllk']}")
+    out["bm_colored_tracks"] = {
+        "fit_wall_s": wallk, "fit_wall_s_unsharded": colored["fit_wall_s"],
+        "evals": resk.counts["evals"], "nllk": resk.value, "nllk_rel": ev,
+        "par_minus_unsharded_max_abs": float(np.max(np.abs(
+            resk.par - np.asarray(colored["par"]))))}
+    log(f"[3q-d] {json.dumps(out['bm_colored_tracks'])}")
+
+    t_e = time.time()
+    data, other, _ = eseal_tracks()
+    kwe = dict(data=data, type="ESEAL_SSM", response="z", other_data=other,
+               par0=[0.0, 0.3])
+    f64 = torch.float64
+    be = SDE(**kwe, device="cuda", dtype=f64).setup(
+        mesh=make_mesh(SHARDS, "time", device="cuda:0"), mesh_axis="time")
+    bf = SDE(**kwe, device="cuda", dtype=f64).setup()
+    x0 = bf.packer.outer_init()
+    (v, g), (fv, fg) = (bundle_value_grad(torch, b, x0) for b in (be, bf))
+    e = {"nllk_rel": abs(v - fv) / abs(fv),
+         "grad_over_max": float(np.max(np.abs(g - fg)) / np.max(np.abs(fg))),
+         "ms_sharded": wall_ms(lambda: bundle_value_grad(torch, be, x0), 5,
+                               1),
+         "ms_unsharded": wall_ms(lambda: bundle_value_grad(torch, bf, x0), 5,
+                                 1)}
+    check(e["nllk_rel"] <= 1e-10 and e["grad_over_max"] <= 1e-8,
+          f"3q-e: ESEAL time-sharded vs unsharded: {e}")
+    e["case_wall_s"] = time.time() - t_e
+    out["eseal_time"] = e
+    log(f"[3q-e] {json.dumps(e)}")
+    out["phase_wall_s"] = time.time() - t0
+    log(f"[3q] {out['phase_wall_s']:.1f} s")
+    return out
+
+
 def slice_kernel_checks(torch, b32, b64, d32, d64, x5a, ou):
     """Phase 4 for the K8 / K2 instantiations of the generic and special
     filters at full width: K8 and K2 `sqrt2` on config 5a's square-root
@@ -2718,6 +3014,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    t_main = time.time()
     card = card_line()
     log(f"[1] card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -2864,6 +3161,29 @@ def main():
         data=data, type="CTCRW", response=["y1", "y2"], par0=[0, 0, 2, 0.8]))
     log("[3p] ESEAL_SSM: 16 tracks x 1,000 dives, with and without priors")
     eseal = phase_eseal(torch, card)
+    log(f"[3q] sharding, {SHARDS} shards on cuda:0: the time-sharded 5a "
+        "CTCRW and 3b OU_SSM, config 4 and 3k's BM by tracks, the "
+        "time-sharded ESEAL route")
+    ctcrw_names = [name for name, _, _ in CTCRW_KERNELS]
+    diag_names = [name for name, _, _ in DIAG_KERNELS]
+    sharding = phase_sharding(torch, card, {
+        "ctcrw_5a_time": (
+            "3q-a", dict(data=data, type="CTCRW", response=["y1", "y2"],
+                         par0=[0, 0, 2, 0.8]), {"tau": 3.0, "nu": 1.0},
+            {"b32": b32, "b64": b64, "res": res, "wall_s": fit_s,
+             "plain_start": plain64["start"]},
+            ctcrw_names, ("filter", "smooth")),
+        "ou_ssm_3b_time": (
+            "3q-b", dict(data=ou_ssm_1m(), type="OU_SSM",
+                         response=["y1", "y2"], par0=[0.0, 0.0, 1.0, 1.0]),
+            {"mu1": 1.0, "mu2": -0.5, "tau": 2.0, "kappa": 1.0},
+            {"b32": ou["b32"], "b64": ou["b64"], "res": ou["res"],
+             "wall_s": ou["summary"]["wall_s"],
+             "plain_start": diag_outer_value_grad(
+                 "OU_SSM", ou["b64"], DiagPlainCore, ou["d64"],
+                 ou["b32"].packer.outer_init(), torch)},
+            diag_names, ("diag_filter", "diag_smooth")),
+    }, c4, colored)
 
     log("[4] kernels vs plain at the fit's shapes, and times")
     ops_k, ops_p = cf.OPS["kernels"], cf.OPS["plain"]
@@ -2978,6 +3298,12 @@ def main():
         })
     for e in kernels:
         e.update(k2.get(e["name"], {}))
+        for case in ("ctcrw_5a_time", "ou_ssm_3b_time"):
+            if e["name"] in sharding[case]["launches_per_nllk_grad"]:
+                e["launches_time_sharded_fit"] = \
+                    sharding[case]["launches_fit"][e["name"]]
+                e["launches_time_sharded_per_nllk_grad"] = \
+                    sharding[case]["launches_per_nllk_grad"][e["name"]]
         if e.get("device_ms"):  # the bound's share of the device time
             e["share"] = e["bound_ms"] / e["device_ms"]
     fit_line["kernel_checks_diag"] = worst_diag
@@ -2995,8 +3321,10 @@ def main():
     fit_line["sqrt_3n"] = sqrt_out
     fit_line["user_H_3o"] = user_h
     fit_line["eseal_3p"] = eseal
+    fit_line["sharding_3q"] = sharding
     for fit, times in ((ou, ou_times), (bm, bm_times)):
         fit_line[fit["typ"]] = {"fit": fit["summary"], **times}
+    fit_line["chip_smoke_s"] = time.time() - t_main
     log("SUMMARY " + json.dumps(fit_line))
     print(json.dumps({"kernels": kernels}))
     print(card)

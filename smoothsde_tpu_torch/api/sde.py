@@ -17,8 +17,8 @@ models (CTCRW, BM_SSM, OU_SSM) run their likelihood on the hand-written
 kernels and the Laplace layer's second-order quantities on a
 forward-mode twin (infer/objective.py `loglik_ad`); with a user H or P0,
 and ESEAL_SSM, on the generic full-state filter (ops/kalman.py), the
-parallel one on a card. Only a sharded fit (`mesh`) is not ported
-(ROADMAP.md queue 1 item 6).
+parallel one on a card. `fit(mesh=..., mesh_axis="tracks" | "time")`
+shards the likelihood over a device mesh (parallel/).
 
 The device and the working type are explicit: `device="cuda"` (the
 default) runs the hand-written CUDA kernels, `device="cpu"` their plain
@@ -382,15 +382,22 @@ class SDE:
         ops/kalman_sqrt.py: the accuracy-optimal route for long f32
         horizons); with a user H or P0, and for ESEAL_SSM, "auto" is the
         full-state filter of the device ("parallel" on a card) and
-        "sequential" / "parallel" force one. A `mesh` raises
-        NotImplementedError (ROADMAP.md queue 1 item 6)."""
-        from smoothsde_tpu_torch.infer.objective import (
-            build_objective,
-            unported,
-        )
+        "sequential" / "parallel" force one.
 
-        if mesh is not None:
-            raise unported("a sharded fit", "sharding")
+        With `mesh` (a parallel/batching.Mesh of devices of this model's
+        kind, or "auto": every card, or the CPU, `auto_mesh`) the
+        likelihood is sharded over its axis `mesh_axis`: "tracks" (whole
+        tracks per shard) or "time" (one long sequence cut into chunks,
+        stitched across their edges); parallel/dist.py. The reference
+        has no counterpart (it is single-threaded, nllk_sde.hpp:77-84)."""
+        from smoothsde_tpu_torch.infer.objective import build_objective
+
+        if isinstance(mesh, str):
+            if mesh != "auto":
+                raise ValueError("mesh must be a Mesh or 'auto'")
+            from smoothsde_tpu_torch.parallel.batching import auto_mesh
+
+            mesh = auto_mesh(axis=mesh_axis, device=self._device)
         init = {
             "coeff_fe": self._coeff_fe,
             "coeff_re": (
@@ -405,6 +412,7 @@ class SDE:
             self._spec, self._design, self._obs, self._times, self._ids,
             other_data=self._other_data, fixpar=self._fixpar,
             init=init, map_fix=map, reml=reml, kalman_impl=kalman_impl,
+            mesh=mesh, mesh_axis=mesh_axis,
             dtype=self._dtype, device=self._device,
         )
         self._kalman_impl = kalman_impl
@@ -452,12 +460,11 @@ class SDE:
         given. `criterion`: "ML" (the reference's criterion) or "REML":
         the fixed-effect coefficients are integrated out alongside the
         smooth coefficients (TMB's random=c("coeff_fe", "coeff_re") REML
-        construction). A `mesh` raises (ROADMAP.md queue 1 item 6)."""
+        construction). `mesh` / `mesh_axis`: fit with the likelihood
+        sharded (see `setup`); a mesh over more than one card cannot run
+        `optimizer="device"` (infer/fit.py)."""
         from smoothsde_tpu_torch.infer.fit import fit_model
-        from smoothsde_tpu_torch.infer.objective import unported
 
-        if mesh is not None:
-            raise unported("a sharded fit", "sharding")
         if criterion not in ("ML", "REML"):
             raise ValueError("criterion must be 'ML' or 'REML'")
         if verbose is not None:
@@ -465,8 +472,10 @@ class SDE:
         reml = criterion == "REML"
         if not silent:
             self.message()
-        if self._bundle is None or map is not None or self._reml != reml:
-            self.setup(map=map, kalman_impl=self._kalman_impl, reml=reml)
+        if (self._bundle is None or map is not None or mesh is not None
+                or self._reml != reml):
+            self.setup(map=map, kalman_impl=self._kalman_impl, mesh=mesh,
+                       mesh_axis=mesh_axis, reml=reml)
         res = fit_model(self._bundle, verbose=not silent, **kwargs)
         self._fit_result = res
         est = self._bundle.packer.split_estimates(res.par, res.bhat)

@@ -103,17 +103,24 @@ def make_val_grad(bundle):
     return val_grad
 
 
+def _multi_card(bundle) -> bool:
+    """The bundle's likelihood is sharded over more than one card."""
+    mesh = getattr(bundle, "mesh", None)
+    return mesh is not None and mesh.n_cards > 1
+
+
 def resolve_optimizer(bundle) -> str:
     """optimizer="auto": "device" on a CUDA model for every closed-form
     model, for small models (n <= 5,000 steps and <= 64 inner
     coefficients) and for models without inner coefficients (config 5a),
     where the host round trip of each evaluation outweighs the
     evaluation; "scipy" otherwise (the JAX package's thresholds, with a
-    CUDA device where it tests for a TPU)."""
+    CUDA device where it tests for a TPU), and always on a mesh over more
+    than one card, where "device" cannot run."""
     small = bundle.n_obs <= 5000 and bundle.packer.n_inner <= 64
     no_inner = bundle.packer.n_inner == 0
     on_card = bundle.device.type == "cuda"
-    return "device" if on_card and (
+    return "device" if on_card and not _multi_card(bundle) and (
         bundle.kind == "closed_form" or small or no_inner) else "scipy"
 
 
@@ -163,13 +170,20 @@ def fit_model(
     gradient, the reference's optim(BFGS), R/sde.R:694-697), "device"
     (infer/lbfgs.py: one scalar read per step; the val+grad step is a
     CUDA graph without inner coefficients), or "auto"
-    (`resolve_optimizer`)."""
+    (`resolve_optimizer`). "device" on a mesh over more than one card
+    raises ValueError: its step is one CUDA graph, which holds one
+    card's work."""
     from scipy import optimize
 
     if optimizer not in OPTIMIZERS:
         raise ValueError(f"optimizer must be one of {OPTIMIZERS}")
     if optimizer == "auto":
         optimizer = resolve_optimizer(bundle)
+    if optimizer == "device" and _multi_card(bundle):
+        raise ValueError(
+            f"optimizer='device' cannot run on a mesh over "
+            f"{bundle.mesh.n_cards} cards: an L-BFGS step is one CUDA graph "
+            f"of one card; use optimizer='scipy'")
     packer = bundle.packer
     raw_val_grad = make_val_grad(bundle)
     n_evals = 0

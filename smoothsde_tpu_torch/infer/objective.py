@@ -47,15 +47,24 @@ OU_SSM). For the state-space types the bundle also carries
 from the full-state steps: on a card the parallel filter's filtered
 moments, on the CPU the sequential scans (objective.py:636-644).
 
+The data term is `rows_likelihood` of every row. With a `mesh`
+(parallel/batching.py) it is the sharded one of parallel/dist.py
+(objective.py:649-680 of the JAX package): on the "tracks" axis a sum of
+`rows_likelihood` over each shard's whole tracks on its device, value and
+twin; on the "time" axis the time-sharded kernel cores for CTCRW, BM_SSM
+and OU_SSM with a sharded SoA scan as their twin, and the time-sharded
+full-state filter on the generic route. ESEAL_SSM's priors are added once,
+outside the sharded sum; `joint_nllk_ad_flat` stays the twin without the
+mesh (the joint precision's).
+
 With random effects and no REML or pinned entries, p_re >= 16 inner
-coefficients get a colored Hessian plan (infer/coloring.py). A mesh
-raises NotImplementedError naming its ROADMAP.md item.
+coefficients get a colored Hessian plan (infer/coloring.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -98,18 +107,10 @@ from smoothsde_tpu_torch.ops.kalman_sqrt import (
 )
 from smoothsde_tpu_torch.ops.penalty import make_penalty
 
-_ROADMAP = {"sharding": "queue 1 item 6 (sharding)"}
-
 # setup(kalman_impl=...) choices (the JAX package's); "soa" is the JAX
 # package's name for the route "auto" takes here
 KALMAN_IMPLS = ("auto", "sequential", "parallel", "sqrt")
 IMPL_ALIASES = {"soa": "auto"}
-
-
-def unported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet; see ROADMAP.md {_ROADMAP[item]}"
-    )
 
 
 def _dinvgamma_log(x, shape, scale):
@@ -183,7 +184,7 @@ class ObjectiveBundle:
     device: torch.device
     kind: str = ""  # 'closed_form' | 'ssm'
     # the forward-mode-capable twin of joint_nllk (joint_nllk itself for
-    # the closed-form models); without a mesh joint_nllk_ad_flat is it
+    # the closed-form models), and that twin without the mesh
     joint_nllk_ad: Optional[Callable] = None
     joint_nllk_ad_flat: Optional[Callable] = None
     filter_states: Optional[Callable] = None  # SSMs: fn(full) -> (n, s)
@@ -195,6 +196,157 @@ class ObjectiveBundle:
     marginal: Optional[Callable] = None  # the Laplace marginal, made once
     # the unpenalized log-likelihood on the value route (`kalman_impl`)
     loglik: Optional[Callable] = None
+    # the mesh of a sharded likelihood (parallel/batching.Mesh), or None
+    mesh: Optional[object] = None
+
+    @property
+    def uses_mesh(self) -> bool:
+        return self.mesh is not None
+
+
+class Likelihood(NamedTuple):
+    """The data term of the log-likelihood over a set of whole tracks, as
+    functions of (full, par_mat): the named parameter tensors and the
+    (rows, n_par) working-scale linear predictor on the rows' device.
+    `value` is the route of `kalman_impl` (the kernels for the isotropic
+    state-space models), `ad` its forward-mode-capable twin (`value`
+    itself where that is plain tensor arithmetic), `twin` the twin's
+    route, `full_steps` the full-state steps of models/ssm.py (state-space
+    models; the generic filter's input and the diagnostics')."""
+
+    value: Callable
+    ad: Callable
+    twin: str
+    full_steps: Optional[Callable] = None
+
+
+def rows_likelihood(spec: ModelSpec, obs, times, ids, other_data, H_array,
+                    P0, kalman_impl: str, *, dtype, device) -> Likelihood:
+    """The Likelihood of the rows (obs, times, ids): whole tracks, their
+    per-step data built once on `device` in `dtype`. `other_data`'s
+    per-row arrays (ESEAL_SSM's h, R, dep_fat) and H_array ((rows, m, m))
+    are the rows' own; build_objective calls it on every row, the
+    track-sharded likelihood (parallel/dist.py) on each shard's."""
+    n = len(ids)
+    closed_form = spec.kind == "closed_form"
+    eseal = spec.type == "ESEAL_SSM"
+    # the generic route: the full-state filter (ESEAL_SSM, user H or P0)
+    generic = not closed_form and (eseal or H_array is not None
+                                   or P0 is not None)
+    if generic and kalman_impl == "sqrt":
+        raise ValueError(
+            "kalman_impl='sqrt' needs isotropic observation noise and the "
+            "default P0 (the square-root filter is per dim)"
+        )
+    filter_impl = (default_filter_impl(device) if kalman_impl == "auto"
+                   else kalman_impl)
+
+    def dev(x):
+        return torch.as_tensor(np.asarray(x, np.float64)).to(
+            device=device, dtype=dtype
+        )
+
+    # the per-step data (observations, f64-derived intervals, masks) is
+    # built once on the device, not per evaluation
+    if closed_form:
+        data = prepare_closed_form_data(obs, times, ids, dtype=dtype,
+                                        device=device,
+                                        dt=precompute_dt(times, ids))
+        other = ({"df": float(other_data["df"])} if spec.type == "BM_t"
+                 else None)
+
+        def value(full, pm):
+            return closed_form_loglik(spec.type, None, None, None, pm, other,
+                                      data=data)
+
+        return Likelihood(value, value, "")
+    if spec.type == "CTCRW" and not generic:
+        data = prepare_ctcrw_data(obs, times, ids, dtype=dtype, device=device)
+    elif not generic:
+        data = prepare_diag_data(spec.type, obs, times, ids, dtype=dtype,
+                                 device=device)
+    # the generic filter is its own twin
+    twin = filter_impl if generic else twin_route(device, n)
+    # the filters' own copy of the data and the host track plan, made
+    # once outside every transform (the per-dim and full-state steps)
+    obs_t = dev(obs)
+    ids_t = torch.as_tensor(np.asarray(ids), device=device)
+    dt_t = dev(precompute_dt(times, ids))
+    track_plan = track_pad_plan(ids, device=device) \
+        if twin == "track" else None
+    H_t = None if H_array is None else dev(H_array)
+    P0_t = None if P0 is None else dev(P0)
+    if eseal:
+        eseal_data = [dev(other_data[k]) for k in ("h", "R", "dep_fat")]
+
+    def perdim_steps(pm, sobs):
+        if spec.type == "CTCRW":
+            return ctcrw_steps_perdim(pm, obs_t, None, ids_t, sigma_obs=sobs,
+                                      dt=dt_t)
+        return diag_ssm_steps_perdim(spec.type, pm, obs_t, None, ids_t,
+                                     sigma_obs=sobs, dt=dt_t)
+
+    def full_steps(full, pm):
+        if eseal:
+            return SSM_STEP_BUILDERS[spec.type](
+                pm, obs_t, None, ids_t, full["log_tau"][0], full["a1"][0],
+                full["log_a2"][0], *eseal_data, P0=P0_t, dt=dt_t)
+        return SSM_STEP_BUILDERS[spec.type](
+            pm, obs_t, None, ids_t, sigma_obs=torch.exp(
+                full["log_sigma_obs"][0]), H_array=H_t, P0=P0_t, dt=dt_t)
+
+    if generic:
+        def value(full, pm):
+            return kalman_loglik(full_steps(full, pm), impl=filter_impl)
+
+        return Likelihood(value, value, twin, full_steps)
+
+    def value(full, pm):
+        sobs = torch.exp(full["log_sigma_obs"][0])
+        if kalman_impl in ("sequential", "parallel"):
+            return kalman_loglik_batched(perdim_steps(pm, sobs),
+                                         impl=kalman_impl)
+        if kalman_impl == "sqrt":
+            # the square-root filter, by plain AD through its scan
+            scan = "blocked" if device.type == "cuda" else "sequential"
+            if spec.type == "CTCRW":
+                return ctcrw_loglik_sqrt(pm, None, None, None, sigma_obs=sobs,
+                                         scan=scan, data=data)
+            return diag_ssm_loglik_sqrt(spec.type, pm, None, None, None,
+                                        sigma_obs=sobs, scan=scan, data=data)
+        if spec.type == "CTCRW":
+            return ctcrw_loglik_soa(pm, None, None, None, sigma_obs=sobs,
+                                    scan="fused", analytic_grad=True,
+                                    data=data)
+        return diag_ssm_loglik_fused(spec.type, pm, None, None, None,
+                                     sigma_obs=sobs, data=data)
+
+    def ad(full, pm):
+        sobs = torch.exp(full["log_sigma_obs"][0])
+        if twin != "track":
+            if spec.type == "CTCRW":
+                return ctcrw_loglik_soa(pm, None, None, None, sigma_obs=sobs,
+                                        scan=twin, data=data)
+            return diag_ssm_loglik_soa(spec.type, pm, None, None, None,
+                                       sigma_obs=sobs, scan=twin, data=data)
+        steps = perdim_steps(pm, sobs)
+        if track_plan is not None:
+            steps = batch_steps_by_track(steps, *track_plan)
+        return kalman_loglik_batched(steps, impl="sequential")
+
+    return Likelihood(value, ad, twin, full_steps)
+
+
+def _check_mesh(mesh, mesh_axis: str, device: torch.device):
+    """The mesh of a sharded fit, checked against the model's device."""
+    if mesh_axis not in mesh.axis_names:
+        raise ValueError(f"mesh has no axis {mesh_axis!r} "
+                         f"(axes {mesh.axis_names})")
+    if any(d.type != device.type for d in mesh.devices):
+        raise ValueError(
+            f"mesh devices {mesh.devices} are not of the model's device "
+            f"type {device.type!r}")
+    return mesh
 
 
 def build_objective(
@@ -209,6 +361,8 @@ def build_objective(
     map_fix: Optional[Dict[str, np.ndarray]] = None,
     reml: bool = False,
     kalman_impl: str = "auto",
+    mesh=None,
+    mesh_axis: str = "tracks",
     *,
     dtype: torch.dtype = torch.float32,
     device="cuda",
@@ -236,16 +390,8 @@ def build_objective(
                 H_array.shape[-1] == n:
             H_array = np.moveaxis(H_array, -1, 0)
     P0 = other_data.get("P0")
-    # the generic route: the full-state filter (ESEAL_SSM, user H or P0)
-    generic = not closed_form and (eseal or H_array is not None
-                                   or P0 is not None)
-    if generic and kalman_impl == "sqrt":
-        raise ValueError(
-            "kalman_impl='sqrt' needs isotropic observation noise and the "
-            "default P0 (the square-root filter is per dim)"
-        )
-    filter_impl = (default_filter_impl(device) if kalman_impl == "auto"
-                   else kalman_impl)
+    if mesh is not None:
+        mesh = _check_mesh(mesh, mesh_axis, device)
 
     def dev(x):
         return torch.as_tensor(np.asarray(x, np.float64)).to(
@@ -271,57 +417,6 @@ def build_objective(
     p_re = int(re_off[-1])
     n_smooth = design.n_lambda
     has_re = p_re > 0
-
-    # the per-step data (observations, f64-derived intervals, masks) is
-    # built once on the device, not per evaluation
-    data = None
-    if closed_form:
-        data = prepare_closed_form_data(obs, times, ids, dtype=dtype,
-                                        device=device,
-                                        dt=precompute_dt(times, ids))
-    elif spec.type == "CTCRW" and not generic:
-        data = prepare_ctcrw_data(obs, times, ids, dtype=dtype, device=device)
-    elif not generic:
-        data = prepare_diag_data(spec.type, obs, times, ids, dtype=dtype,
-                                 device=device)
-    if closed_form:
-        twin = ""
-    elif generic:
-        twin = filter_impl  # the generic filter is its own twin
-    else:
-        twin = twin_route(device, n)
-    if not closed_form:
-        # the filters' own copy of the data and the host track plan, made
-        # once outside every transform (the per-dim and full-state steps)
-        obs_t = dev(obs)
-        ids_t = torch.as_tensor(np.asarray(ids), device=device)
-        dt_t = dev(precompute_dt(times, ids))
-        track_plan = track_pad_plan(ids, device=device) \
-            if twin == "track" else None
-        H_t = None if H_array is None else dev(H_array)
-        P0_t = None if P0 is None else dev(P0)
-        if eseal:
-            eseal_data = [dev(other_data[k]) for k in ("h", "R", "dep_fat")]
-
-    def perdim_steps(full, sobs):
-        pm = par_matrix(full)
-        if spec.type == "CTCRW":
-            return ctcrw_steps_perdim(pm, obs_t, None, ids_t, sigma_obs=sobs,
-                                      dt=dt_t)
-        return diag_ssm_steps_perdim(spec.type, pm, obs_t, None, ids_t,
-                                     sigma_obs=sobs, dt=dt_t)
-
-    def full_steps(full):
-        """The full-state steps of models/ssm.py (the generic filter's
-        input, and the filtered states' and innovations')."""
-        pm = par_matrix(full)
-        if eseal:
-            return SSM_STEP_BUILDERS[spec.type](
-                pm, obs_t, None, ids_t, full["log_tau"][0], full["a1"][0],
-                full["log_a2"][0], *eseal_data, P0=P0_t, dt=dt_t)
-        return SSM_STEP_BUILDERS[spec.type](
-            pm, obs_t, None, ids_t, sigma_obs=torch.exp(
-                full["log_sigma_obs"][0]), H_array=H_t, P0=P0_t, dt=dt_t)
 
     # ---- decay-modulated splines (closed-form models only,
     #      R/sde.R:634-653, nllk_sde.hpp:47-58) ----
@@ -448,73 +543,49 @@ def build_objective(
         return torch.stack(cols, dim=1)
 
     # ---- likelihood ----
-    if closed_form:
-        other = ({"df": float(other_data["df"])} if spec.type == "BM_t"
-                 else None)
+    lik = rows_likelihood(spec, obs, times, ids, other_data, H_array, P0,
+                          kalman_impl, dtype=dtype, device=device)
+    priors = eseal_priors(other_data.get("priors", "schick2013"), n) \
+        if eseal else {}
 
-        def loglik(full):
-            return closed_form_loglik(spec.type, None, None, None,
-                                      par_matrix(full), other, data=data)
-    elif generic:
-        priors = eseal_priors(other_data.get("priors", "schick2013"), n) \
-            if eseal else {}
+    def prior_terms(full):
+        """The inverse-gamma priors of ESEAL_SSM (0 otherwise), added once
+        outside a sharded sum, on (1,) tensors: a float times a 0-d
+        tensor promotes f32 under jvp-of-grad."""
+        llk = 0.0
+        if "sigma2" in priors:
+            sigma0 = torch.exp(par_matrix(full)[:1, 1])
+            llk = llk + _dinvgamma_log(sigma0**2, *priors["sigma2"]).sum()
+        if "tau2" in priors:
+            tau = torch.exp(full["log_tau"])
+            llk = llk + _dinvgamma_log(tau**2, *priors["tau2"]).sum()
+        return llk
 
-        def loglik(full):
-            llk = kalman_loglik(full_steps(full), impl=filter_impl)
-            # the inverse-gamma priors of ESEAL_SSM, on (1,) tensors: a
-            # float times a 0-d tensor promotes f32 under jvp-of-grad
-            if "sigma2" in priors:
-                sigma0 = torch.exp(par_matrix(full)[:1, 1])
-                llk = llk + _dinvgamma_log(sigma0**2, *priors["sigma2"]).sum()
-            if "tau2" in priors:
-                tau = torch.exp(full["log_tau"])
-                llk = llk + _dinvgamma_log(tau**2, *priors["tau2"]).sum()
-            return llk
+    value, value_ad = lik.value, lik.ad
+    if mesh is not None:
+        from smoothsde_tpu_torch.parallel import dist
 
-        loglik_ad = loglik
-    else:
-        def loglik(full):
-            sobs = torch.exp(full["log_sigma_obs"][0])
-            if kalman_impl in ("sequential", "parallel"):
-                return kalman_loglik_batched(perdim_steps(full, sobs),
-                                             impl=kalman_impl)
-            if kalman_impl == "sqrt":
-                # the square-root filter, by plain AD through its scan
-                scan = "blocked" if device.type == "cuda" else "sequential"
-                if spec.type == "CTCRW":
-                    return ctcrw_loglik_sqrt(par_matrix(full), None, None,
-                                             None, sigma_obs=sobs, scan=scan,
-                                             data=data)
-                return diag_ssm_loglik_sqrt(spec.type, par_matrix(full), None,
-                                            None, None, sigma_obs=sobs,
-                                            scan=scan, data=data)
-            if spec.type == "CTCRW":
-                return ctcrw_loglik_soa(
-                    par_matrix(full), None, None, None, sigma_obs=sobs,
-                    scan="fused", analytic_grad=True, data=data,
-                )
-            return diag_ssm_loglik_fused(
-                spec.type, par_matrix(full), None, None, None,
-                sigma_obs=sobs, data=data,
-            )
+        if mesh_axis == "time":
+            sharded = dist.build_time_sharded_loglik(
+                spec, obs, times, ids, mesh, mesh_axis, other_data, H_array,
+                P0, kalman_impl, dtype=dtype, device=device)
+        else:
+            sharded = dist.build_sharded_loglik(
+                spec, obs, times, ids, mesh, mesh_axis, other_data,
+                kalman_impl, H_array, P0, dtype=dtype)
+        value, value_ad = sharded.loglik, sharded.loglik_ad
 
-        def loglik_ad(full):
-            # the forward-mode-capable twin: no kernel, no
-            # autograd.Function, so vmap / jvp / grad compose at any order
-            sobs = torch.exp(full["log_sigma_obs"][0])
-            pm = par_matrix(full)
-            if twin != "track":
-                if spec.type == "CTCRW":
-                    return ctcrw_loglik_soa(pm, None, None, None,
-                                            sigma_obs=sobs, scan=twin,
-                                            data=data)
-                return diag_ssm_loglik_soa(spec.type, pm, None, None, None,
-                                           sigma_obs=sobs, scan=twin,
-                                           data=data)
-            steps = perdim_steps(full, sobs)
-            if track_plan is not None:
-                steps = batch_steps_by_track(steps, *track_plan)
-            return kalman_loglik_batched(steps, impl="sequential")
+    def loglik(full):
+        return value(full, par_matrix(full)) + prior_terms(full)
+
+    def loglik_ad(full):
+        # the forward-mode-capable twin: no kernel, no autograd.Function,
+        # so vmap / jvp / grad compose at any order
+        return value_ad(full, par_matrix(full)) + prior_terms(full)
+
+    def loglik_ad_flat(full):
+        # the twin without the mesh: the joint precision's Hessian
+        return lik.ad(full, par_matrix(full)) + prior_terms(full)
 
     filter_states = innovations = None
     if not closed_form:
@@ -522,7 +593,7 @@ def build_objective(
 
         def filter_states(full):
             """(n, s) state estimates after each observation (aest_all)."""
-            steps = full_steps(full)
+            steps = lik.full_steps(full, par_matrix(full))
             if states_impl == "parallel":
                 return filtered_to_reported_states(
                     steps, kalman_filter_parallel(steps)[1])
@@ -531,32 +602,33 @@ def build_objective(
         def innovations(full):
             """(u (n, m), F (n, m, m), ok (n,)), ops/kalman.py
             `kalman_innovations`."""
-            return kalman_innovations(full_steps(full), impl=states_impl)
+            return kalman_innovations(lik.full_steps(full, par_matrix(full)),
+                                      impl=states_impl)
 
     # ---- penalty ----
     penalty = make_penalty(design.S_groups, normalize=closed_form,
                            dtype=dtype, device=device)
 
-    def joint_nllk(full):
-        val = -loglik(full)
-        if has_re:
-            val = val + penalty(full["coeff_re"], full["log_lambda"])
-        return val
-
-    if closed_form:
-        joint_nllk_ad = joint_nllk
-    else:
-        def joint_nllk_ad(full):
-            val = -loglik_ad(full)
+    def _joint(loglik_fn):
+        def joint(full):
+            val = -loglik_fn(full)
             if has_re:
                 val = val + penalty(full["coeff_re"], full["log_lambda"])
             return val
+
+        return joint
+
+    joint_nllk = _joint(loglik)
+    # the closed-form value route is plain torch, its own twin
+    joint_nllk_ad = joint_nllk if closed_form else _joint(loglik_ad)
+    joint_nllk_ad_flat = joint_nllk_ad if mesh is None \
+        else _joint(loglik_ad_flat)
 
     def joint_nllk_unpenalized(full):
         # include_penalty = 0: the closed-form dispatcher drops the
         # penalty entirely (nllk_sde.hpp:91); what conditional AIC needs,
         # through the twin (callers take its Hessian)
-        return -(loglik if closed_form else loglik_ad)(full)
+        return -loglik_ad(full)
 
     # ---- compressed inner-Hessian plan (infer/coloring.py) ----
     # Only when the inner vector is exactly the full coeff_re (ML, no
@@ -584,10 +656,11 @@ def build_objective(
         device=device,
         kind=spec.kind,
         joint_nllk_ad=joint_nllk_ad,
-        joint_nllk_ad_flat=joint_nllk_ad,
+        joint_nllk_ad_flat=joint_nllk_ad_flat,
         filter_states=filter_states,
         innovations=innovations,
         hess_plan=hess_plan,
-        twin=twin,
+        twin=lik.twin,
         loglik=loglik,
+        mesh=mesh,
     )

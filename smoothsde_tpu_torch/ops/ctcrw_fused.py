@@ -168,22 +168,34 @@ def stack_rows(rows, pad_vals, p: Plan):
                         pad_vals, p)
 
 
-def build_par_stack(mu, lt, ln, dtv, te, tvn, yd, upd, rst, p: Plan):
+def build_par_stack(mu, lt, ln, dtv, te, tvn, yd, upd, rst, p: Plan,
+                    ent=None):
     """The shared par-space stack (L, 10, lanes) and the per-lane
     boundary rows bd (5, lanes): the PREVIOUS slot's (lt, ln, dt, mu,
     rst) for each lane's first step (step b*L - 1, the last step of the
     lane before). Lane 0 of each dim is masked by rst = 1 (the first
-    step's entering transition is the identity). mu and yd are (d, n);
-    the other rows (n,)."""
+    step's entering transition is the identity) unless `ent` gives the
+    slot before the sequence: (lt, ln, dt, rst) 0-d and mu (d,), the
+    last slot of the previous time chunk (JAX kalman_soa.py:726-738 takes
+    it from globally shifted copies), so that lane 0 sees the real
+    transition across the chunk edge. mu and yd are (d, n); the other
+    rows (n,)."""
     d, n = p.d, p.n
     rows = [lt, ln, dtv, mu, te, tvn, yd, upd, rst, torch.ones_like(lt)]
     stack = _to_lanes(torch.stack([r.expand(d, n) for r in rows]), p)
     start = torch.arange(p.NB, device=lt.device) * p.L
     bidx = (start - 1).clamp(0, n - 1)
     rst_b = torch.where(start == 0, 1.0, rst[bidx]).to(lt.dtype)
+    b_rows = [lt[bidx], ln[bidx], dtv[bidx], rst_b]
+    mu_b = mu[:, bidx]
+    if ent is not None:
+        e_lt, e_ln, e_dt, e_mu, e_rst = ent
+        b_rows = [torch.cat([e.reshape(1), x[1:]])
+                  for e, x in zip((e_lt, e_ln, e_dt, e_rst), b_rows)]
+        mu_b = torch.cat([e_mu.reshape(d, 1), mu_b[:, 1:]], dim=1)
     bd = torch.stack([
-        lt[bidx].expand(d, p.NB), ln[bidx].expand(d, p.NB),
-        dtv[bidx].expand(d, p.NB), mu[:, bidx], rst_b.expand(d, p.NB),
+        b_rows[0].expand(d, p.NB), b_rows[1].expand(d, p.NB),
+        b_rows[2].expand(d, p.NB), mu_b, b_rows[3].expand(d, p.NB),
     ]).reshape(_N_BD, p.lanes).contiguous()
     return stack, bd
 
@@ -985,28 +997,145 @@ ELEM_OPS = {
 
 
 # ---------------------------------------------------------------------------
+# Stitching time chunks (the `stitch` hooks; the time-sharded cores of
+# ops/kalman_soa.py and ops/diag_fused.py). Between K2 and the rescan:
+# the chunks' total elements per response dim, their exclusive prefix
+# (suffix) over the chunks, and that seed composed into every block's
+# prefix (suffix). The chunks are batched: one combine for all the
+# totals, log2(chunks) for the seeds, one per device for the fold.
+# ---------------------------------------------------------------------------
+
+# packed rows of the filtering element's 2x2 blocks (A; C and J
+# symmetric: their off-diagonal row twice)
+_A_ROWS, _C_ROWS, _J_ROWS = [0, 1, 2, 3], [6, 7, 7, 8], [11, 12, 12, 13]
+
+
+def _to_mat(v):
+    """Packed filtering elements (14, ...) -> `_combine2_mat`'s (A, b, C,
+    eta, J), event axes last."""
+    def mat(rows):
+        return v[rows].movedim(0, -1).reshape(v.shape[1:] + (2, 2))
+
+    return (mat(_A_ROWS), v[4:6].movedim(0, -1), mat(_C_ROWS),
+            v[9:11].movedim(0, -1), mat(_J_ROWS))
+
+
+def _from_mat(e):
+    A, b, C, eta, J = e
+    lead = A.shape[:-2]
+    tri = [0, 1, 3]  # (0, 0), (0, 1), (1, 1) of a flattened 2x2
+    return torch.cat([A.reshape(lead + (4,)), b,
+                      C.reshape(lead + (4,))[..., tri], eta,
+                      J.reshape(lead + (4,))[..., tri]], dim=-1).movedim(
+        -1, 0)
+
+
+def _combine_packed(elem, a, b):
+    """combine(a, b) of the kind `elem` on packed (C, ...) tensors; the
+    filtering kind through `_combine2_mat`, its values bit for bit in
+    ~60 tensor operations instead of ~150."""
+    if elem == "filter":
+        from smoothsde_tpu_torch.ops.kalman_soa import _combine2_mat
+
+        return _from_mat(_combine2_mat(_to_mat(a), _to_mat(b)))
+    k = ELEMS[elem]
+    return torch.stack(k.pack(k.combine(k.unpack(a.unbind(0)),
+                                        k.unpack(b.unbind(0)))))
+
+
+def chunk_totals(excls, totals, d, elem, reverse, device):
+    """(C, S, d) on `device`: the total element of all the steps of each
+    of S chunks per response dim, from K2's exclusive prefixes and the
+    block totals [(C, lanes_r)]: the prefix at each dim's last block
+    composed with that block's total (reverse: the suffix at its first
+    block with its total, which `_combine2_rev(acc, new)` puts outside).
+    Padding slots hold identity elements, so the last block's padding
+    adds nothing."""
+    def pick(xs):
+        return torch.stack([
+            x.reshape(x.shape[0], d, -1)[..., 0 if reverse else -1].to(device)
+            for x in xs], dim=1)
+
+    return _combine_packed(elem, pick(excls), pick(totals))
+
+
+def chunk_total(excl, totals, d, elem, reverse=False):
+    """(C, d): `chunk_totals` of one chunk."""
+    return chunk_totals([excl], [totals], d, elem, reverse, excl.device)[:, 0]
+
+
+def stitch_seeds(totals, elem, reverse=False):
+    """(C, S, d): the exclusive prefix over the S chunks (suffix if
+    reverse) of their totals (C, S, d): chunk r's seed composes the totals
+    of the chunks before it (after it), the identity at the first (last).
+    Hillis-Steele over the chunks, as `block_prefix_plain` over blocks."""
+    C, S, d = totals.shape
+    ident = _const(ELEMS[elem].id_vals, totals)[:, None, None]
+    x = totals.flip(1) if reverse else totals
+    k = 1
+    while k < S:
+        x = _combine_packed(elem, torch.cat(
+            [ident.expand(C, k, d), x[:, :-k]], dim=1), x)
+        k *= 2
+    x = torch.cat([ident.expand(C, 1, d), x[:, :-1]], dim=1)
+    return x.flip(1) if reverse else x
+
+
+def seed_chunks(seeds, excls, d, elem):
+    """[combine(seed_r, excl_r)]: each chunk's exclusive block prefixes
+    (suffixes) (C, lanes_r) with its seed, seeds[:, r] (C, d), composed in
+    before every block; for the reverse kinds the seed is the suffix of
+    the later chunks, the accumulator `_combine2_rev` takes first. The
+    chunks on one device in one combine; each result contiguous on its
+    chunk's device."""
+    out = [None] * len(excls)
+    groups = {}
+    for r, x in enumerate(excls):
+        groups.setdefault(x.device, []).append(r)
+    for dev, rs in groups.items():
+        C = excls[rs[0]].shape[0]
+        lanes = [excls[r].shape[1] for r in rs]
+        s = torch.cat([seeds[:, r].to(dev)[:, :, None].expand(
+            C, d, m // d).reshape(C, m) for r, m in zip(rs, lanes)], dim=1)
+        x = torch.cat([excls[r] for r in rs], dim=1) if len(rs) > 1 \
+            else excls[rs[0]]
+        for r, y in zip(rs, _combine_packed(elem, s, x).split(lanes, dim=1)):
+            out[r] = y.contiguous()
+    return out
+
+
+def seed_blocks(seed, excl, d, elem):
+    """`seed_chunks` of one chunk: excl (C, lanes) with the seed (C, d)
+    composed in before every block."""
+    return seed_chunks(seed[:, None], [excl], d, elem)[0]
+
+
+# ---------------------------------------------------------------------------
 # Forward filter and backward score over the shared stack
 # ---------------------------------------------------------------------------
 
 
 def fused_filter_par(stack, bd, h, p: Plan, p0_pos, p0_vel,
-                     ops: KernelOps = OPS["kernels"]):
+                     ops: KernelOps = OPS["kernels"], stitch=None):
     """Forward filter: (llk, filtered moments (L, 5, lanes)). h is a
-    1-element tensor on the stack's device."""
+    1-element tensor on the stack's device. `stitch(chunk_total) -> seed`
+    ((14, d) each, the JAX package's hook, ctcrw_fused.py:767-784) makes
+    the stack one time chunk of a longer sequence: it receives the
+    chunk's total filtering element and returns the exclusive prefix of
+    the chunks before it, which seeds every block before K1b."""
     totals = ops.filter_totals(stack, bd, h, p0_pos, p0_vel)
     prefix = ops.block_prefix(totals, p.d, "filter", False)
+    if stitch is not None:
+        seed = stitch(chunk_total(prefix, totals, p.d, "filter"))
+        prefix = seed_blocks(seed, prefix, p.d, "filter")
     moments, llk_lanes = ops.filter_scan(stack, bd, prefix, h, p0_pos,
                                          p0_vel)
     return llk_lanes.sum(), moments
 
 
-def fused_backward_par(stack, moments, h, gbar, p: Plan, p0_pos,
-                       ops: KernelOps = OPS["kernels"]):
-    """Backward: the Fisher-identity score scaled by gbar, as
+def par_cotangents(cot, hbar_lanes, gbar, p: Plan):
+    """K3b's (L, 4, lanes) cotangents and h partials scaled by gbar:
     (mubar (d, n), ltbar (n,), lnbar (n,), ybar (d, n), hbar 0-d)."""
-    totals = ops.smooth_totals(stack, moments)
-    suffix = ops.block_prefix(totals, p.d, "smooth", True)
-    cot, hbar_lanes = ops.score_scan(stack, moments, suffix, h, p0_pos)
     c_mu, c_lt, c_ln, c_y = unstack(cot, p)
     return (
         gbar * c_mu,
@@ -1015,6 +1144,22 @@ def fused_backward_par(stack, moments, h, gbar, p: Plan, p0_pos,
         gbar * c_y,
         gbar * hbar_lanes.sum(),
     )
+
+
+def fused_backward_par(stack, moments, h, gbar, p: Plan, p0_pos,
+                       ops: KernelOps = OPS["kernels"], stitch=None):
+    """Backward: the Fisher-identity score scaled by gbar, as
+    (mubar (d, n), ltbar (n,), lnbar (n,), ybar (d, n), hbar 0-d).
+    `stitch(chunk_total) -> seed` ((9, d) each; JAX ctcrw_fused.py:
+    1562-1584): the chunk's total smoothing element in, the exclusive
+    suffix of the chunks after it out, seeding every block before K3b."""
+    totals = ops.smooth_totals(stack, moments)
+    suffix = ops.block_prefix(totals, p.d, "smooth", True)
+    if stitch is not None:
+        seed = stitch(chunk_total(suffix, totals, p.d, "smooth", True))
+        suffix = seed_blocks(seed, suffix, p.d, "smooth")
+    cot, hbar_lanes = ops.score_scan(stack, moments, suffix, h, p0_pos)
+    return par_cotangents(cot, hbar_lanes, gbar, p)
 
 
 # ---------------------------------------------------------------------------
@@ -1052,16 +1197,20 @@ def elem_backward_stack(sys, p: Plan):
     ], _ELEM_BWD_PAD, p)
 
 
-def fused_filter(sys, ops: KernelOps = ELEM_OPS["kernels"]):
+def fused_filter(sys, ops: KernelOps = ELEM_OPS["kernels"], stitch=None):
     """Element-space fused forward filter of a CtcrwSystem (the JAX
     package's `fused_filter` with tiled moments): (llk, filtered moments
     (L, 5, lanes) in the stack layout of plan(d, n), rows m0, m1, P00,
-    P01, P11)."""
+    P01, P11). `stitch`: as in `fused_filter_par` (JAX ctcrw_fused.py:
+    309, :451-476)."""
     d, n = sys.yd.shape
     stack = elem_forward_stack(sys, plan(d, n))
     h1 = sys.h.reshape(1).contiguous()
     totals = ops.filter_totals(stack, h1, sys.p0_pos, sys.p0_vel)
     prefix = ops.block_prefix(totals, d, "filter", False)
+    if stitch is not None:
+        seed = stitch(chunk_total(prefix, totals, d, "filter"))
+        prefix = seed_blocks(seed, prefix, d, "filter")
     moments, llk_lanes = ops.filter_scan(stack, prefix, h1, sys.p0_pos,
                                          sys.p0_vel)
     return llk_lanes.sum(), moments

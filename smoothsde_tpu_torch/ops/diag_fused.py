@@ -482,22 +482,36 @@ OPS = {
 # ---------------------------------------------------------------------------
 
 
-def diag_fwd(stack, h, p: cf.Plan, p0, ops: cf.KernelOps = OPS["kernels"]):
+def diag_fwd(stack, h, p: cf.Plan, p0, ops: cf.KernelOps = OPS["kernels"],
+             stitch=None):
     """Forward filter: (llk, filtered moments (L, 2, lanes)). h is a
-    1-element tensor on the stack's device."""
+    1-element tensor on the stack's device. `stitch(chunk_total) -> seed`
+    ((5, d) each; the JAX package's hook, diag_fused.py:318-331): the
+    chunk's total filtering element in, the exclusive prefix of the
+    chunks before it out, seeding every block before D1b (D1b's segment
+    totals within each lane stay the chunk's own)."""
     seg = segment_scratch(stack)
     totals = ops.filter_totals(stack, h, p0, seg)
     prefix = ops.block_prefix(totals, p.d, "diag_filter", False)
+    if stitch is not None:
+        seed = stitch(cf.chunk_total(prefix, totals, p.d, "diag_filter"))
+        prefix = cf.seed_blocks(seed, prefix, p.d, "diag_filter")
     moments, llk_lanes = ops.filter_scan(stack, prefix, seg, h, p0)
     return llk_lanes.sum(), moments
 
 
 def diag_bwd(stack, moments, h, p: cf.Plan, p0,
-             ops: cf.KernelOps = OPS["kernels"]):
+             ops: cf.KernelOps = OPS["kernels"], stitch=None):
     """Backward over the leaving-row stack: per-slot score in LEAVING
-    indexing, (c_t, c_q, c_c, c_y) each (d, n), and the h score sum."""
+    indexing, (c_t, c_q, c_c, c_y) each (d, n), and the h score sum.
+    `stitch`: (3, d) smoothing totals in, the suffix of the later chunks
+    out (JAX diag_fused.py:517-531)."""
     totals = ops.smooth_totals(stack, moments)
     suffix = ops.block_prefix(totals, p.d, "diag_smooth", True)
+    if stitch is not None:
+        seed = stitch(cf.chunk_total(suffix, totals, p.d, "diag_smooth",
+                                     True))
+        suffix = cf.seed_blocks(seed, suffix, p.d, "diag_smooth")
     cot, hbar_lanes = ops.score_scan(stack, moments, suffix, h, p0)
     c_t, c_q, c_c, c_y = cf.unstack(cot, p)
     return c_t, c_q, c_c, c_y, hbar_lanes.sum()
@@ -570,3 +584,152 @@ def diag_ssm_loglik_fused(type, par_mat, obs, times, ids, sigma_obs,
     the per-step data."""
     sysd = diag_system(type, par_mat, obs, times, ids, sigma_obs, p0, data)
     return diag_fused_loglik(sysd)
+
+
+# ---------------------------------------------------------------------------
+# Time-sharded core (JAX diag_fused.py:665-756)
+# ---------------------------------------------------------------------------
+
+
+class DiagChunk(NamedTuple):
+    """One time chunk, rows [start, stop) of a DiagData, on its shard's
+    device: yd (d, m); resetf, updatef, te, tvn (m,), the look-ahead
+    masks te, tvn (backward_stack's) formed on the whole sequence; and
+    for the m + 1 transitions that enter the chunk's slots and the slot
+    after it (`diag_chunk_rows`): dtv_ext (m + 1,) the intervals of the
+    rows they propagate from (start - 1 .. stop - 1), prevf_ext (m + 1,)
+    the entered slots' previous-slot-a-start masks (1 past the end), and
+    BM_SSM's dg_ext (d, m + 1) (0 past the end; None for OU_SSM)."""
+
+    yd: torch.Tensor
+    resetf: torch.Tensor
+    updatef: torch.Tensor
+    te: torch.Tensor
+    tvn: torch.Tensor
+    dtv_ext: torch.Tensor
+    prevf_ext: torch.Tensor
+    dg_ext: torch.Tensor = None
+
+
+def split_diag_data(data: DiagData, sizes, devices):
+    """The DiagChunks of consecutive chunks of `sizes` steps, chunk r on
+    devices[r]."""
+    one = data.resetf.new_ones(1)
+    tv = (1.0 - data.resetf) * (1.0 - data.prevf)
+    te = torch.cat([data.resetf[1:], one])
+    tvn = torch.cat([tv[1:], data.resetf.new_zeros(1)])
+    dtv_x = torch.cat([one, data.dtv])
+    prevf_x = torch.cat([data.prevf, one])
+    dg_x = None if data.dg is None else torch.cat(
+        [data.dg, data.dg.new_zeros(data.dg.shape[0], 1)], dim=1)
+    chunks, s = [], 0
+    for m, dev in zip(sizes, devices):
+        chunks.append(DiagChunk(
+            yd=data.yd[:, s:s + m].to(dev),
+            resetf=data.resetf[s:s + m].to(dev),
+            updatef=data.updatef[s:s + m].to(dev),
+            te=te[s:s + m].to(dev), tvn=tvn[s:s + m].to(dev),
+            dtv_ext=dtv_x[s:s + m + 1].to(dev),
+            prevf_ext=prevf_x[s:s + m + 1].to(dev),
+            dg_ext=None if dg_x is None else dg_x[:, s:s + m + 1].to(dev)))
+        s += m
+    return chunks
+
+
+def diag_chunk_rows(type, chunk: DiagChunk, par, prev_row):
+    """(t, q (m + 1,), c (d, m + 1)): the transitions entering the chunk's
+    m slots and the slot after it, as `diag_system` forms them, from its
+    par rows (m, n_par) and the par row before it (prev_row, the previous
+    chunk's last; any row at the sequence's start, where it is masked).
+    The first m are the forward stack's entering rows, the last m the
+    backward stack's leaving rows."""
+    d = chunk.yd.shape[0]
+    t_s, q_s, b_s = diag_transition(type, torch.cat([prev_row[None], par]),
+                                    chunk.dtv_ext, d)
+    prev = chunk.prevf_ext > 0.5
+    c = torch.where(prev, 0.0, b_s)
+    if chunk.dg_ext is not None:
+        c = c - chunk.dg_ext
+    return torch.where(prev, 1.0, t_s), torch.where(prev, 0.0, q_s), c
+
+
+class TimeShardedDiagCore(torch.autograd.Function):
+    """DiagFusedCore over a sequence cut into time chunks, each on its own
+    device, stitched exactly (the scalar-state mirror of
+    ops/kalman_soa.TimeShardedCtcrwCore). apply(chunks, ops_name, p0, h,
+    *rows): `split_diag_data`'s chunks, the op table of OPS, the prior
+    variance, h 0-d on the output's device, and each chunk's (t, q, c) of
+    `diag_chunk_rows` on its device, flattened. Forward: D1a, K2 and the
+    chunk totals (5, d), their exclusive prefixes gathered on h's device
+    and composed into each chunk's block prefixes before D1b (D1b's
+    segment totals stay the chunk's own). Backward: D3a, K2 reversed, the
+    exclusive suffixes, the seeded D3b. The score of each transition
+    lands on its leaving side (the rows' last m); the entering side (the
+    first m) gets an exact zero, as in the JAX core. Returns the total
+    llk, 0-d on h's device."""
+
+    @staticmethod
+    def forward(ctx, chunks, ops_name, p0, h, *rows):
+        ops = OPS[ops_name]
+        d = chunks[0].yd.shape[0]
+        state, totals, pres = [], [], []
+        for r, ch in enumerate(chunks):
+            t, q, c = rows[3 * r:3 * r + 3]
+            p = cf.plan(d, t.shape[0] - 1)
+            h1 = h.reshape(1).to(t.device)
+            stack = forward_stack(t[:-1], q[:-1], c[:, :-1], ch.yd,
+                                  ch.resetf, ch.updatef, p)
+            seg = segment_scratch(stack)
+            totals.append(ops.filter_totals(stack, h1, p0, seg))
+            pres.append(ops.block_prefix(totals[-1], d, "diag_filter", False))
+            state.append((p, stack, seg, h1))
+        seeds = cf.stitch_seeds(cf.chunk_totals(
+            pres, totals, d, "diag_filter", False, h.device), "diag_filter")
+        llk, saved = [], []
+        for r, ((p, stack, seg, h1), pre) in enumerate(zip(
+                state, cf.seed_chunks(seeds, pres, d, "diag_filter"))):
+            mom, ll = ops.filter_scan(stack, pre, seg, h1, p0)
+            llk.append(ll.sum().to(h.device))
+            saved += [*rows[3 * r:3 * r + 3], mom, h1]
+        ctx.save_for_backward(*saved)
+        ctx.chunks, ctx.plans = chunks, [s[0] for s in state]
+        ctx.ops_name, ctx.p0, ctx.h_shape = ops_name, p0, h.shape
+        return torch.stack(llk).sum()
+
+    @staticmethod
+    def backward(ctx, gbar):
+        ops = OPS[ctx.ops_name]
+        saved = ctx.saved_tensors
+        d = ctx.plans[0].d
+        state, totals, sufs = [], [], []
+        for r, (ch, p) in enumerate(zip(ctx.chunks, ctx.plans)):
+            t, q, c, mom, h1 = saved[5 * r:5 * r + 5]
+            stack = cf.stack_rows([t[1:], q[1:], c[:, 1:], ch.te, ch.tvn,
+                                   ch.yd, ch.updatef, ch.resetf], _BWD_PAD, p)
+            totals.append(ops.smooth_totals(stack, mom))
+            sufs.append(ops.block_prefix(totals[-1], d, "diag_smooth", True))
+            state.append((p, stack, mom, h1))
+        seeds = cf.stitch_seeds(cf.chunk_totals(
+            sufs, totals, d, "diag_smooth", True, gbar.device),
+            "diag_smooth", True)
+        grads, hbars = [], []
+        for (p, stack, mom, h1), suf in zip(
+                state, cf.seed_chunks(seeds, sufs, d, "diag_smooth")):
+            cot, hb = ops.score_scan(stack, mom, suf, h1, ctx.p0)
+            c_t, c_q, c_c, _ = cf.unstack(cot, p)
+            g = gbar.to(stack.device)
+            zero = c_c.new_zeros(d, 1)
+            grads += [torch.cat([zero[0], g * c_t.sum(0)]),
+                      torch.cat([zero[0], g * c_q.sum(0)]),
+                      torch.cat([zero, g * c_c], dim=1)]
+            hbars.append((g * hb.sum()).to(gbar.device))
+        return (None, None, None,
+                torch.stack(hbars).sum().reshape(ctx.h_shape), *grads)
+
+
+def diag_fused_core_time_sharded(rows, chunks, h, ops_name="kernels",
+                                 p0=P0):
+    """The time-sharded BM_SSM / OU_SSM log-likelihood (JAX
+    diag_fused.py:665), differentiable in each chunk's (t, q, c) rows
+    (`diag_chunk_rows`, flattened) and in h: see TimeShardedDiagCore."""
+    return TimeShardedDiagCore.apply(chunks, ops_name, float(p0), h, *rows)

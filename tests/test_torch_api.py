@@ -362,16 +362,20 @@ def _refit_free(ps, kw):
 
 def test_kalman_impl_choices(pair):
     """setup(kalman_impl=): "sequential" gives the kernel route's
-    log-likelihood; an unknown value raises ValueError; a mesh raises
-    naming ROADMAP queue 1 item 6."""
+    log-likelihood; an unknown value raises ValueError; setup(mesh="auto")
+    (one CPU shard) and a mesh of three CPU shards give the fit's
+    log-likelihood through the sharded route."""
+    from smoothsde_tpu_torch.parallel.batching import make_mesh
+
     ps, _, kw, _, _ = pair
     m = _refit_free(ps, kw)
     m.setup(kalman_impl="sequential")
     assert m.log_lik() == pytest.approx(ps.log_lik(), rel=1e-10)
     with pytest.raises(ValueError):
         m.setup(kalman_impl="nope")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        m.setup(mesh="auto")
+    for mesh in ("auto", make_mesh(3, device="cpu")):
+        assert m.setup(mesh=mesh).uses_mesh
+        assert m.log_lik() == pytest.approx(ps.log_lik(), rel=1e-10)
 
 
 @pytest.mark.parametrize("impl", ["auto", "soa", "sequential", "parallel",

@@ -912,3 +912,238 @@ def test_generic_route_on_card_matches_cpu(cuda, other):
             else:
                 assert float((a - b).abs().max()) <= 1e-8 * max(
                     1.0, float(b.abs().max()))
+
+
+def _edge_data(seed=3, n=700):
+    """The chunk-edge geometry of tests/test_torch_dist.py: a track
+    boundary on the first slot of 8-way chunk 3 (slot 264), another
+    inside it, a NaN row."""
+    rng = np.random.default_rng(seed)
+    times = np.cumsum(rng.uniform(0.4, 0.6, size=n))
+    obs = np.cumsum(rng.normal(size=(n, 2)) * 0.3, axis=0)
+    obs[50, :] = np.nan
+    ids = np.concatenate([np.zeros(264, int), np.full(36, 1), np.full(400, 2)])
+    return obs, times, ids
+
+
+EDGE_THETA = {"CTCRW": [0.1, -0.2, np.log(2.0), 0.0],
+              "BM_SSM": [0.1, -0.2, np.log(0.8)],
+              "OU_SSM": [0.1, -0.2, np.log(2.0), np.log(0.6)]}
+
+
+def _time_sharded_routes(cuda, typ, shards):
+    """The edge data's time-sharded likelihood on `shards` chunks of the
+    card through the kernels and through the plain op tables, and the
+    unsharded kernel route, f64."""
+    from smoothsde_tpu_torch.models.registry import get_model_spec
+    from smoothsde_tpu_torch.parallel import dist
+    from smoothsde_tpu_torch.parallel.batching import make_mesh
+
+    obs, times, ids = _edge_data()
+    spec = get_model_spec(typ, 2)
+    mesh = make_mesh(shards, "time", device="cuda:0")
+    kern = dist.build_time_sharded_loglik(spec, obs, times, ids, mesh,
+                                          "time", dtype=torch.float64,
+                                          device=cuda).loglik
+    flat = dist.build_sharded_loglik(spec, obs, times, ids,
+                                     make_mesh(1, device="cuda:0"),
+                                     dtype=torch.float64).loglik
+    build = (dist._build_time_sharded_fused_ctcrw if typ == "CTCRW"
+             else dist._build_time_sharded_fused_diag)
+    plain = build(spec, obs, times, ids, mesh, "time", dtype=torch.float64,
+                  ops_name="plain")
+    return kern, plain, flat
+
+
+def _edge_full(cuda):
+    return {"log_sigma_obs": torch.tensor([np.log(0.1)], dtype=torch.float64,
+                                          device=cuda)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("typ", ["CTCRW", "BM_SSM", "OU_SSM"])
+@pytest.mark.parametrize("shards", [1, 2, 3, 8])
+def test_stitched_kernels_match_plain(cuda, typ, shards):
+    """The time-sharded kernel cores (K1a / K2 / K1b and K3a / K2 / K3b
+    stitched across chunks; D1a-D3b for the scalar-state types) on
+    `shards` chunks of the card against the same cores on the plain op
+    tables, f64: value within 1e-10 relative, gradient within 1e-8 of its
+    largest component, each kernel launched once a chunk; and against
+    the unsharded kernel route at 1e-10 / 1e-8."""
+    kern, plain, flat = _time_sharded_routes(cuda, typ, shards)
+    n = len(_edge_data()[2])
+    theta = EDGE_THETA[typ]
+
+    def vg(fn):
+        th = torch.tensor(theta, dtype=torch.float64, device=cuda,
+                          requires_grad=True)
+        v = fn(_edge_full(cuda), th.expand(n, len(theta)))
+        (g,) = torch.autograd.grad(v, th)
+        return v.item(), g.cpu().numpy()
+
+    names = CTCRW_KERNELS if typ == "CTCRW" else DIAG_KERNELS
+    cf.reset_launches()
+    v, g = vg(kern)
+    for name in names:
+        assert cf.LAUNCHES[name] == shards, (name, cf.LAUNCHES[name])
+    for ref in (plain, flat):
+        rv, rg = vg(ref)
+        assert v == pytest.approx(rv, rel=1e-10)
+        assert np.max(np.abs(g - rg)) <= 1e-8 * np.max(np.abs(rg))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("typ", ["CTCRW", "BM_SSM", "OU_SSM"])
+@pytest.mark.parametrize("shards", [3, 8])
+def test_stitched_kernels_varying_rows(cuda, typ, shards):
+    """Parameter rows that differ from row to row (a seeded walk about
+    EDGE_THETA), so each chunk's entering row and the score of each
+    edge's transition are read from the rows they belong to: the
+    stitched kernels against the plain op tables and the unsharded
+    kernel route, value within 1e-10 relative and the gradient of every
+    row within 1e-8 of its largest component, f64."""
+    kern, plain, flat = _time_sharded_routes(cuda, typ, shards)
+    n = len(_edge_data()[2])
+    walk = np.cumsum(np.random.default_rng(11).normal(
+        size=(n, len(EDGE_THETA[typ]))), axis=0)
+    rows = np.asarray(EDGE_THETA[typ]) + 0.3 * np.sin(walk / 8.0)
+
+    def vg(fn):
+        pm = torch.tensor(rows, dtype=torch.float64, device=cuda,
+                          requires_grad=True)
+        v = fn(_edge_full(cuda), pm)
+        (g,) = torch.autograd.grad(v, pm)
+        return v.item(), g.cpu().numpy()
+
+    v, g = vg(kern)
+    for ref in (plain, flat):
+        rv, rg = vg(ref)
+        assert v == pytest.approx(rv, rel=1e-10)
+        assert np.max(np.abs(g - rg)) <= 1e-8 * np.max(np.abs(rg))
+
+
+@pytest.mark.gpu
+def test_time_sharded_smooths_on_card(cuda):
+    """CTCRW on the edge data with tau ~ s(x), nu and mu1 linear in x
+    (every parameter row differs), its time axis in 8 chunks of the card
+    through the stitched kernels, against the flat bundle on the CPU:
+    the joint nllk within 1e-10 relative and its gradient in every outer
+    and inner coefficient within 1e-8 of the largest, f64."""
+    from smoothsde_tpu_torch import SDE
+    from smoothsde_tpu_torch.parallel.batching import make_mesh
+
+    obs, times, ids = _edge_data()
+    kw = dict(formulas={"mu1": "~x", "mu2": "~1",
+                        "tau": "~s(x, k=5, bs='ts')", "nu": "~x"},
+              data={"ID": ids, "time": times, "x": np.sin(times / 40.0),
+                    "y1": obs[:, 0], "y2": obs[:, 1]},
+              type="CTCRW", response=["y1", "y2"], par0=[0.0, 0.0, 1.0, 1.0])
+    got = SDE(**kw, device="cuda", dtype=torch.float64).setup(
+        mesh=make_mesh(8, "time", device="cuda:0"), mesh_axis="time")
+    want = SDE(**kw, device="cpu", dtype=torch.float64).setup()
+    rng = np.random.default_rng(5)
+    outer = want.packer.outer_init() + 0.1 * rng.normal(
+        size=want.packer.outer_init().shape)
+    inner = want.packer.inner_init() + 0.1 * rng.normal(
+        size=want.packer.inner_init().shape)
+    vals = []
+    for b, dev in ((got, cuda), (want, "cpu")):
+        o = torch.tensor(outer, dtype=torch.float64, device=dev,
+                         requires_grad=True)
+        i = torch.tensor(inner, dtype=torch.float64, device=dev,
+                         requires_grad=True)
+        cf.reset_launches()
+        v = b.joint_nllk(b.packer.unpack(o, i))
+        go, gi = torch.autograd.grad(v, (o, i))
+        vals.append((v.item(), torch.cat([go, gi]).cpu().numpy(),
+                     dict(cf.LAUNCHES)))
+    (v, g, launches), (rv, rg, _) = vals
+    for name in CTCRW_KERNELS:
+        assert launches[name] == 8, (name, launches[name])
+    assert v == pytest.approx(rv, rel=1e-10)
+    assert np.max(np.abs(g - rg)) <= 1e-8 * np.max(np.abs(rg))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("typ", ["CTCRW", "OU_SSM"])
+def test_sharded_across_cards(cuda, typ):
+    """The time- and track-sharded likelihoods with one shard a card, on
+    every visible card (two or more), against the same shards all on
+    cuda:0: value within 1e-10 relative, gradient within 1e-8 of its
+    largest component, f64; optimizer="device" refuses such a mesh."""
+    from smoothsde_tpu_torch import SDE
+    from smoothsde_tpu_torch.parallel.batching import make_mesh
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more CUDA devices")
+    obs, times, ids = _edge_data()
+    kw = dict(data={"ID": ids, "time": times, "y1": obs[:, 0],
+                    "y2": obs[:, 1]}, type=typ, response=["y1", "y2"],
+              par0=[0.0, 0.0, 1.0, 1.0])
+    for axis in ("time", "tracks"):
+        shards = cards if axis == "time" else min(cards, 3)
+        got, want = (
+            SDE(**kw, device="cuda", dtype=torch.float64).setup(
+                mesh=mesh, mesh_axis=axis)
+            for mesh in (make_mesh(shards, axis),
+                         make_mesh(shards, axis, device="cuda:0")))
+        x = got.packer.outer_init() + 0.05
+        vals = []
+        for b in (got, want):
+            xt = torch.tensor(x, dtype=torch.float64, device=cuda,
+                              requires_grad=True)
+            v = b.joint_nllk(b.packer.unpack(xt))
+            (g,) = torch.autograd.grad(v, xt)
+            vals.append((v.item(), g.cpu().numpy()))
+        (v, g), (rv, rg) = vals
+        assert v == pytest.approx(rv, rel=1e-10)
+        assert np.max(np.abs(g - rg)) <= 1e-8 * np.max(np.abs(rg))
+    sde = SDE(**kw, device="cuda")
+    with pytest.raises(ValueError, match="cards"):
+        sde.fit(mesh=make_mesh(cards, "time"), mesh_axis="time",
+                optimizer="device")
+
+
+@pytest.mark.gpu
+def test_element_space_stitch_hook_on_card(cuda):
+    """fused_filter(sys, stitch=) on the card (K4a, K2, K4b): two slices
+    of one f64 CtcrwSystem, the second seeded with the first's total, give
+    the whole system's llk and moments (1e-10 of their scale), and the
+    same through the plain op table; each kernel launched once a slice."""
+    obs, times, ids = _edge_data()
+    n, s = len(ids), 264
+    pm = torch.tensor([0.1, -0.2, np.log(2.0), 0.0], dtype=torch.float64,
+                      device=cuda).expand(n, 4)
+    sys = _ctcrw_system(pm, obs, times, ids,
+                        torch.tensor(0.1, dtype=torch.float64, device=cuda))
+
+    def cut(x, a, b):
+        if isinstance(x, tuple):
+            return tuple(cut(v, a, b) for v in x)
+        return x[..., a:b].contiguous()
+
+    halves = [sys._replace(**{f: cut(getattr(sys, f), a, b) for f in (
+        "Ft", "ct", "Qt", "yd", "reset", "prev_reset", "update")})
+        for a, b in ((0, s), (s, n))]
+    for ops in (cf.ELEM_OPS["kernels"], cf.ELEM_OPS["plain"]):
+        llk, mom = cf.fused_filter(sys, ops)
+        box = []
+
+        def first(total):
+            box.append(total)
+            return cf.stitch_seeds(total[:, None], "filter")[:, 0]
+
+        cf.reset_launches()
+        l0, m0 = cf.fused_filter(halves[0], ops, stitch=first)
+        l1, m1 = cf.fused_filter(halves[1], ops, stitch=lambda t: box[0])
+        if ops is cf.ELEM_OPS["kernels"]:
+            for name in ("elem_filter_totals", "block_prefix_filter",
+                         "elem_filter_scan"):
+                assert cf.LAUNCHES[name] == 2, (name, cf.LAUNCHES[name])
+        assert (l0 + l1).item() == pytest.approx(llk.item(), rel=1e-10)
+        got = torch.cat([cf.unstack(m0, cf.plan(2, s)),
+                         cf.unstack(m1, cf.plan(2, n - s))], dim=-1)
+        want = cf.unstack(mom, cf.plan(2, n))
+        assert float((got - want).abs().max()) <= 1e-10 * max(
+            1.0, float(want.abs().max()))

@@ -97,3 +97,13 @@ def test_filter_modules_are_guarded(rel):
 
 def test_filter_modules_load_neither_jax_nor_the_jax_package():
     _load_in_fresh_interpreter(FILTERS)
+
+
+# the sharding modules (a single-controller mesh of torch devices, no jax)
+PARALLEL = ("parallel/batching.py", "parallel/dist.py",
+            "parallel/time_scan.py")
+
+
+@pytest.mark.parametrize("rel", PARALLEL)
+def test_parallel_modules_are_guarded(rel):
+    assert PKG / rel in FILES

@@ -99,7 +99,9 @@ def test_outside_the_slice_raises():
     """Formerly refused (ROADMAP queue 1 item 5): a CTCRW with a user H,
     given in the reference's (m, m, n) layout, or a user P0 builds on the
     generic route (H fixes sigma_obs) and gives the JAX package's joint
-    nllk at the start to 1e-10 relative; only a mesh still raises."""
+    nllk at the start to 1e-10 relative; formerly refused (ROADMAP queue
+    1 item 6), fit(mesh="auto") on the CPU (one shard) reaches the flat
+    fit's optimum."""
     data = _simulate(n_per=(30,))
     H = np.tile(np.diag([0.01, 0.02])[:, :, None], (1, 1, 30))
     for other in ({"H": H}, {"P0": np.diag([1.0, 4.0, 2.0, 8.0])}):
@@ -114,9 +116,12 @@ def test_outside_the_slice_raises():
         want = float(jb.joint_nllk(jb.packer.unpack(outer)))
         got = float(pb.joint_nllk(pb.packer.unpack(torch.tensor(outer))))
         assert got == pytest.approx(want, rel=1e-10)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        SDE(data=data, type="CTCRW", response=["y1", "y2"],
-            device="cpu").fit(mesh="auto")
+    kw = dict(data=data, type="CTCRW", response=["y1", "y2"], device="cpu",
+              dtype=torch.float64)
+    sharded = SDE(**kw).fit(mesh="auto", compute_sdreport=False)
+    flat = SDE(**kw).fit(compute_sdreport=False)
+    assert sharded.value == pytest.approx(flat.value, rel=1e-10)
+    np.testing.assert_allclose(sharded.par, flat.par, rtol=0, atol=1e-6)
 
 
 def test_smooth_marginal_matches_jax():
