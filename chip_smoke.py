@@ -144,6 +144,27 @@ non-zero before the final line:
      (nllk within 1e-4 of 3k's) and 3p's ESEAL data on the time-sharded
      full-state filter (f64 value and gradient against the unsharded
      route, 1e-10 / 1e-8);
+     3r. the multi-process ("dcn", axis) mesh: two processes spawned on
+     the one card (torch.multiprocessing, gloo, a FileStore in a
+     temporary directory), two shards on cuda:0 each: the 5a CTCRW and
+     3b OU_SSM with their time axis in 2 x 2 chunks (f64 nllk and
+     gradient at the start against the one-process unsharded kernels,
+     1e-10 / 1e-8 of the largest component; f32 fits converged, nllk
+     within 1e-4 of the unsharded fits'; each kernel launched twice a
+     process per nllk+grad; the walls beside 3q's) and config 4 by
+     tracks (f64 joint nllk and twin against one process, and the
+     Laplace marginal against 3i's at the golden point, 1e-10 / 1e-8);
+     both ranks' results equal bit for bit; a failure or hang of either
+     process fails the phase;
+     3s. BASELINE config 3, one 2-D CTCRW track of 1,500 irregular
+     steps (tools/bench_configs.py config3's data, seed 2), fitted in
+     f32 and f64: convergence, tau and nu within 5%, the f32 nllk within
+     1e-4 of f64's, every CTCRW kernel launched;
+     3t. fit(profile_dir=...) at 5a writes a torch.profiler trace
+     naming each CUDA kernel of the path, timings under the JAX stage
+     names; sdreport_mode "device" (the FD points stacked on the card)
+     against "host" in f64 at 5a and config 2, within 1e-6 of the
+     largest entry;
      2f. (run after 2e) K8 alone for the scalar-state and square-root
      kinds (diag_filter, diag_smooth, sqrt2, sqrt1), both directions,
      d in {1, 2, 3}, lanes around its 128-thread block: f64 within 1e-10
@@ -168,7 +189,8 @@ events, device_ms from the profiler, bytes and bound_us / bound_ms /
 bound_by from `bound`, share = bound_ms / device_ms, library_ms null; the
 CTCRW kernels also ms_f64 and device_ms_f64; the CTCRW and scalar-state
 kernels their launches on 3q's time-sharded fit and per sharded
-nllk+grad), and the last line
+nllk+grad, and on 3r's two-process fit and nllk+grad (rank 0's), the
+CTCRW kernels on 3s's fit), and the last line
 {"ok": true, "device": {...}}. It imports nothing of JAX.
 """
 
@@ -1268,7 +1290,8 @@ def phase_config2(torch):
            "nllk": res.value, "f64_nllk": res64.value, "nllk_rel": ev,
            "f64_wall_s": wall64, "f64_evals": res64.counts["evals"],
            "n_inner": len(res.bhat), "lambda": sde.lambda_().tolist(),
-           "timings_s": res.timings}
+           "timings_s": res.timings, "par_f64": res64.par.tolist(),
+           "bhat_f64": res64.bhat.tolist()}
     log(f"[3g] {json.dumps(out)}")
     return out
 
@@ -2981,6 +3004,373 @@ def slice_kernel_checks(torch, b32, b64, d32, d64, x5a, ou):
     return out
 
 
+MP_RANKS = 2  # phase 3r's processes, both on cuda:0
+MP_SHARDS = 2  # each process's shards
+MP_TIMEOUT_S = 600
+
+
+def mp_rank(rank, store, out, cases, kw4, z4):
+    """One process of phase 3r: joins a gloo group of MP_RANKS processes
+    (a FileStore at `store`), runs `mp_cases` on ("dcn", axis) meshes of
+    MP_SHARDS shards on cuda:0, and pickles the results to
+    <out>.<rank>. Any error raises out of the process (a non-zero exit
+    code, which fails the phase)."""
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", world_size=MP_RANKS,
+        rank=rank, timeout=datetime.timedelta(seconds=MP_TIMEOUT_S))
+    try:
+        res = mp_cases(torch, cases, kw4, z4)
+        with open(f"{out}.{rank}", "wb") as f:
+            pickle.dump(res, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def mp_cases(torch, cases, kw4, z4):
+    """Phase 3r's work in one process. For each time case (SDE keywords,
+    the kernels of its path): the f64 joint nllk and gradient at the
+    start, the f32 fit with its launches, the launches and wall of one
+    f32 nllk+grad at the optimum. For config 4 by tracks, f64 at the
+    golden point: the joint nllk and its twin with their gradients, and
+    the Laplace marginal's value and gradient with its launches."""
+    from smoothsde_tpu_torch import SDE
+    from smoothsde_tpu_torch.infer.fit import make_val_grad
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+    from smoothsde_tpu_torch.parallel.batching import Mesh
+
+    f64 = torch.float64
+    out = {}
+    for tag, (kw, names) in cases.items():
+        t_case = time.time()
+        mesh = Mesh(["cuda:0"] * MP_SHARDS, ("dcn", "time"))
+        b64 = SDE(**kw, device="cuda", dtype=f64).setup(mesh=mesh,
+                                                       mesh_axis="time")
+        x0 = b64.packer.outer_init()
+        v64, g64 = bundle_value_grad(torch, b64, x0)
+        del b64
+        cf.reset_launches()
+        t = time.time()
+        sde = SDE(**kw, device="cuda")
+        res = sde.fit(mesh=mesh, mesh_axis="time")
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        fit_launches = {k: cf.LAUNCHES[k] for k in names}
+        b32 = sde.bundle()
+        cf.reset_launches()
+        bundle_value_grad(torch, b32, res.par)
+        per_eval = {k: cf.LAUNCHES[k] for k in names}
+        walls = wall_ms(lambda: bundle_value_grad(torch, b32, res.par), 30,
+                        3)
+        out[tag] = {"v64_start": v64, "g64_start": g64, "par": res.par,
+                    "nllk": res.value, "convergence": res.convergence,
+                    "via": res.convergence_via,
+                    "evals": res.counts["evals"], "fit_wall_s": wall,
+                    "launches_fit": fit_launches,
+                    "launches_per_nllk_grad": per_eval,
+                    "nllk_grad_ms": walls, "case_wall_s": time.time() - t_case}
+    t_case = time.time()
+    mesh = Mesh(["cuda:0"] * MP_SHARDS, ("dcn", "tracks"))
+    b = SDE(**kw4, device="cuda", dtype=f64).setup(mesh=mesh)
+    c4 = {}
+    for route in ("joint_nllk", "joint_nllk_ad"):
+        c4[route] = bundle_value_grad(
+            torch, b, z4, lambda full, route=route: getattr(b, route)(full))
+    n_out = b.packer.n_outer
+    cf.reset_launches()
+    t = time.time()
+    mv, mg, _ = make_val_grad(b)(z4[:n_out])
+    c4["marginal"] = (mv, mg)
+    c4["marginal_s"] = time.time() - t
+    c4["launches_per_marginal_eval"] = {k: v for k, v in cf.LAUNCHES.items()
+                                        if v}
+    c4["graphs"] = {k: g.status for k, g in b.marginal.graphs.items()}
+    c4["case_wall_s"] = time.time() - t_case
+    out["config4_tracks"] = c4
+    return out
+
+
+def phase_multiprocess(torch, card, cases, c4, sharding):
+    """Phase 3r: the ("dcn", axis) mesh, MP_RANKS processes spawned on the
+    one card (torch.multiprocessing, gloo, a FileStore in a temporary
+    directory), each with MP_SHARDS shards on cuda:0 (`mp_rank`). cases:
+    {tag: (SDE keywords, kernel names, the unsharded f64 bundle, the
+    unsharded f32 fit result, 3q's case)} for the time axis (5a CTCRW,
+    3b OU_SSM); config 4 by tracks at tests/golden/config4.npz's point.
+    Gates: both processes exit 0 within MP_TIMEOUT_S (a failure or a
+    hang in either fails the phase; a hung one is killed); both ranks'
+    results equal bit for bit; time cases: f64 nllk and gradient at the
+    start against the one-process unsharded kernels' (1e-10 relative,
+    1e-8 of the largest component), f32 fits converge with the nllk
+    within 1e-4 relative of the unsharded fits', each kernel of the path
+    launched MP_SHARDS times a process per nllk+grad; config 4: the f64
+    joint nllk and its twin against the one-process unsharded ones and
+    the Laplace marginal against 3i's f64 marginal at the golden point
+    (1e-10 / 1e-8), each CTCRW kernel launched by the marginal
+    evaluation. Prints each multi-process nllk+grad wall beside 3q's
+    one-process walls (unsharded and SHARDS chunks)."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as tmp
+
+    from smoothsde_tpu_torch import SDE
+
+    t0 = time.time()
+    kw4, _ = config4()
+    fx = np.load(os.path.join(HERE, "tests", "golden", "config4.npz"))
+    b4 = SDE(**kw4, device="cuda", dtype=torch.float64).setup()
+    z4 = np.concatenate([fx["outer"], b4.packer.inner_init()])
+    flat4 = {route: bundle_value_grad(
+        torch, b4, z4, lambda full, route=route: getattr(b4, route)(full))
+        for route in ("joint_nllk", "joint_nllk_ad")}
+    del b4
+    flat = {tag: bundle_value_grad(torch, c[2], c[2].packer.outer_init())
+            for tag, c in cases.items()}
+    with tempfile.TemporaryDirectory() as tmpdir:
+        ctx = tmp.get_context("spawn")
+        procs = [ctx.Process(target=mp_rank, args=(
+            r, os.path.join(tmpdir, "store"), os.path.join(tmpdir, "res"),
+            {tag: (c[0], c[1]) for tag, c in cases.items()}, kw4, z4))
+            for r in range(MP_RANKS)]
+        for p in procs:
+            p.start()
+        deadline = time.time() + MP_TIMEOUT_S
+        for p in procs:
+            p.join(max(1.0, deadline - time.time()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        check(not hung and codes == [0] * MP_RANKS,
+              f"3r: processes {hung} still running after {MP_TIMEOUT_S} s "
+              f"(killed); exit codes {codes}")
+        ranks = []
+        for r in range(MP_RANKS):
+            with open(os.path.join(tmpdir, f"res.{r}"), "rb") as f:
+                ranks.append(pickle.load(f))
+    spawn_s = time.time() - t0
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a
+                                                if not k.endswith("_s")
+                                                and k != "nllk_grad_ms")
+        if isinstance(a, (tuple, list)):
+            return len(a) == len(b) and all(map(same, a, b))
+        return np.array_equal(np.asarray(a), np.asarray(b))
+
+    check(same(ranks[0], ranks[1]), "3r: the ranks' results differ")
+    r0 = ranks[0]
+    out = {"card": card, "processes": MP_RANKS, "shards_per_process":
+           MP_SHARDS}
+    for tag, (kw, names, _, res_flat, sh) in cases.items():
+        m = r0[tag]
+        fv, fg = flat[tag]
+        acc = {"f64_nllk_rel": abs(m["v64_start"] - fv) / abs(fv),
+               "f64_grad_over_max": float(np.max(np.abs(m["g64_start"] - fg))
+                                          / np.max(np.abs(fg)))}
+        ev = abs(m["nllk"] - res_flat.value) / abs(res_flat.value)
+        check(acc["f64_nllk_rel"] <= 1e-10 and acc["f64_grad_over_max"]
+              <= 1e-8, f"3r {tag}: f64 two processes vs one: {acc}")
+        check(m["convergence"] == 0 and ev <= 1e-4,
+              f"3r {tag}: f32 fit over two processes: convergence "
+              f"{m['convergence']}, nllk {m['nllk']} vs {res_flat.value}")
+        for nm in names:
+            check(m["launches_per_nllk_grad"][nm] == MP_SHARDS,
+                  f"3r {tag}: {nm} launched {m['launches_per_nllk_grad'][nm]}"
+                  f" times a nllk+grad in a process, not {MP_SHARDS}")
+        out[tag] = {**{k: v for k, v in m.items()
+                       if k not in ("g64_start", "par")},
+                    "par": m["par"].tolist(), "accuracy_start": acc,
+                    "nllk_unsharded": res_flat.value, "nllk_rel": ev,
+                    "fit_wall_s_unsharded": sh["fit_wall_s_unsharded"],
+                    "fit_wall_s_one_process_sharded": sh["fit_wall_s"],
+                    "nllk_grad_ms_one_process": sh["nllk_grad_ms"]}
+        log(f"[3r] {tag}: nllk+grad wall median two processes "
+            f"{m['nllk_grad_ms']['median']:.2f} ms, one process unsharded "
+            f"{sh['nllk_grad_ms']['unsharded']['median']:.2f} ms, one "
+            f"process {SHARDS} chunks "
+            f"{sh['nllk_grad_ms']['sharded']['median']:.2f} ms; fit "
+            f"{m['fit_wall_s']:.2f} s ({m['evals']} evals) vs "
+            f"{sh['fit_wall_s_unsharded']:.2f} s unsharded")
+    m4 = r0["config4_tracks"]
+    e4 = {}
+    for route in ("joint_nllk", "joint_nllk_ad"):
+        (v, g), (fv, fg) = m4[route], flat4[route]
+        e4[route] = {"nllk_rel": abs(v - fv) / abs(fv),
+                     "grad_over_max": float(np.max(np.abs(g - fg))
+                                            / np.max(np.abs(fg)))}
+    gv, gg = m4["marginal"]
+    want = c4["golden_f64"]
+    e4["marginal"] = {"nllk_rel": abs(gv - want["marginal_nllk"])
+                      / abs(want["marginal_nllk"]),
+                      "grad_over_max": float(
+                          np.max(np.abs(gg - np.asarray(want["grad"])))
+                          / np.max(np.abs(want["grad"])))}
+    for route, e in e4.items():
+        check(e["nllk_rel"] <= 1e-10 and e["grad_over_max"] <= 1e-8,
+              f"3r config 4: f64 {route} over two processes vs one: {e}")
+    for name, _, _ in CTCRW_KERNELS:
+        check(m4["launches_per_marginal_eval"].get(name, 0) > 0,
+              f"3r config 4: {name} not launched by a marginal evaluation")
+    out["config4_tracks"] = {
+        "f64_vs_one_process": e4, "marginal_s": m4["marginal_s"],
+        "launches_per_marginal_eval": m4["launches_per_marginal_eval"],
+        "graphs": m4["graphs"], "case_wall_s": m4["case_wall_s"]}
+    out["phase_wall_s"] = time.time() - t0
+    out["spawn_to_results_s"] = spawn_s
+    log(f"[3r] {json.dumps(out)}")
+    return out
+
+
+def config3(seed=2, n=1500):
+    """BASELINE config 3 (the JAX package's tools/bench_configs.py
+    config3): one 2-D CTCRW GPS track of n steps at irregular times
+    (dt ~ U(0.2, 1.5)), tau 3, nu 1, sigma_obs 0.1, seed 2, simulated
+    step by step as there. Returns (SDE keywords, truth)."""
+    from smoothsde_tpu_torch.utils.misc import ctcrw_cov
+
+    rng = np.random.default_rng(seed)
+    times = np.cumsum(rng.uniform(0.2, 1.5, size=n))
+    tau_t, nu_t, sobs = 3.0, 1.0, 0.1
+    beta = 1 / tau_t
+    sigma = 2 * nu_t / np.sqrt(np.pi * tau_t)
+    v, z = np.zeros(2), np.zeros(2)
+    obs = np.empty((n, 2))
+    obs[0] = 0
+    for i in range(1, n):
+        dt = times[i] - times[i - 1]
+        e = np.exp(-beta * dt)
+        V = ctcrw_cov(beta, sigma, dt)
+        for d in range(2):
+            mv, mz = e * v[d], z[d] + v[d] / beta * (1 - e)
+            v[d], z[d] = rng.multivariate_normal([mv, mz], V)
+        obs[i] = z + rng.normal(size=2) * sobs
+    data = {"ID": np.zeros(n, int), "time": times,
+            "y1": obs[:, 0], "y2": obs[:, 1]}
+    return (dict(data=data, type="CTCRW", response=["y1", "y2"],
+                 par0=[0.0, 0.0, 2.0, 0.8]), {"tau": tau_t, "nu": nu_t})
+
+
+def phase_config3(torch, card):
+    """Phase 3s: BASELINE config 3 (`config3`), fitted in f32 and f64 on
+    the card through K1a-K3b. Gates: convergence, tau and nu within 5% of
+    the truth in both, the f32 nllk within 1e-4 relative of the f64
+    fit's, every CTCRW kernel launched by the f32 fit."""
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+
+    kw, truth = config3()
+    cf.reset_launches()
+    sde, res, wall = fit_on_card(torch, "3s", kw, torch.float32)
+    launches = {name: cf.LAUNCHES[name] for name, _, _ in CTCRW_KERNELS}
+    sde64, res64, wall64 = fit_on_card(torch, "3s", kw, torch.float64)
+    est = {}
+    for tag, s_, r_ in (("f32", sde, res), ("f64", sde64, res64)):
+        tau, nu = (float(v) for v in s_.par(t=0)[0, 2:4])
+        est[tag] = {"tau": tau, "nu": nu}
+        check(r_.convergence == 0, f"3s: {tag} fit: {r_.message}")
+        for nm, got in est[tag].items():
+            check(abs(got - truth[nm]) / truth[nm] < 0.05,
+                  f"3s: {tag} {nm} {got} not within 5% of {truth[nm]}")
+    ev = abs(res.value - res64.value) / abs(res64.value)
+    check(ev <= 1e-4, f"3s: f32 nllk {res.value} vs f64 {res64.value}")
+    for name, n in launches.items():
+        check(n > 0, f"3s: {name} never launched by the fit")
+    out = {"card": card, "n": len(kw["data"]["ID"]), "fit_wall_s": wall,
+           "evals": res.counts["evals"], "via": res.convergence_via,
+           "f64_fit_wall_s": wall64, "f64_evals": res64.counts["evals"],
+           "estimates": est, "truth": truth, "nllk": res.value,
+           "nllk_f64": res64.value, "nllk_rel": ev,
+           "launches_fit": launches, "timings": res.timings}
+    log(f"[3s] {json.dumps(out)}")
+    return out
+
+
+# the CUDA kernel functions of the CTCRW path (csrc/ctcrw_filter.cu,
+# block_prefix.cu, ctcrw_backward.cu), which 3t finds in the fit's trace
+CTCRW_CUDA_FUNCTIONS = (
+    "filter_totals_kernel", "filter_scan_kernel",
+    "block_prefix_reduce_kernel", "block_prefix_carry_kernel",
+    "block_prefix_rescan_kernel", "smooth_totals_kernel",
+    "score_scan_kernel")
+
+
+PROFILE_ITERS = 3  # the BFGS iterations of 3t's profiled fit (a short trace)
+
+
+def phase_profile_fd(torch, card, data5a, b64, x5a, cfg2):
+    """Phase 3t: `fit(profile_dir=..., maxiter=PROFILE_ITERS)` at config
+    5a in f32 writes a torch.profiler trace (under build/) that names
+    each CUDA kernel function of the path (CTCRW_CUDA_FUNCTIONS), and
+    its `timings` hold the JAX package's stage names; the FD outer Hessian of
+    sdreport_mode="device" (`infer.fit.fd_hessian`: the points stacked on
+    the card, one copy back) against "host" (one evaluation and read a
+    point) in f64 at 5a's f32 optimum (b64: the f64 bundle) and at
+    config 2's f64 optimum (cfg2: phase 3g's results): each entry within
+    1e-6 of the matrix's largest."""
+    import shutil
+
+    from smoothsde_tpu_torch import SDE
+    from smoothsde_tpu_torch.infer.fit import _fd_device, _fd_host
+    from smoothsde_tpu_torch.infer.fit import make_val_grad
+
+    t0 = time.time()
+    log_dir = os.path.join(HERE, "build", "chip_smoke_trace")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    _, res, wall = fit_on_card(
+        torch, "3t", dict(data=data5a, type="CTCRW", response=["y1", "y2"],
+                          par0=[0, 0, 2, 0.8]), torch.float32,
+        profile_dir=log_dir, compute_sdreport=False, maxiter=PROFILE_ITERS)
+    files = [os.path.join(log_dir, f) for f in os.listdir(log_dir)]
+    check(len(files) == 1 and os.path.getsize(files[0]) > 0,
+          f"3t: the trace directory holds {files}")
+    with open(files[0]) as f:
+        text = f.read()
+    # a kernel's name appears in the trace in its device events only
+    found = {fn: text.count(fn) for fn in CTCRW_CUDA_FUNCTIONS}
+    check(all(found.values()), f"3t: CUDA kernels missing from the trace: "
+          f"{found}")
+    check(set(res.timings) == {"marginal_nllk_grad"},
+          f"3t: timings stages {sorted(res.timings)}")
+    trace_mb = os.path.getsize(files[0]) / 2**20
+    shutil.rmtree(log_dir, ignore_errors=True)
+
+    fd = {}
+    kw2, _ = config2()
+    b2 = SDE(**kw2, device="cuda", dtype=torch.float64).setup()
+    for tag, b, x, bh in (("config5a", b64, x5a, np.zeros(0)),
+                          ("config2", b2, np.asarray(cfg2["par_f64"]),
+                           np.asarray(cfg2["bhat_f64"]))):
+        vg = make_val_grad(b)
+        t = time.time()
+        H_host = _fd_host(vg, x, bh, 1e-4)
+        t_host = time.time() - t
+        t = time.time()
+        H_dev = _fd_device(b, x, bh, 1e-4)
+        t_dev = time.time() - t
+        err = float(np.max(np.abs(H_dev - H_host)) / np.max(np.abs(H_host)))
+        fd[tag] = {"err_over_max": err, "host_s": t_host, "device_s": t_dev,
+                   "n_outer": len(x)}
+        check(np.all(np.isfinite(H_dev)) and err <= 1e-6,
+              f"3t: {tag} FD Hessian, device vs host: {err:.3e}")
+    out = {"card": card, "fit_wall_s": wall, "evals": res.counts["evals"],
+           "trace_mb": trace_mb, "kernels_in_trace": found,
+           "timings": res.timings, "fd_hessian_f64": fd,
+           "phase_wall_s": time.time() - t0}
+    log(f"[3t] {json.dumps(out)}")
+    return out
+
+
 def main():
     import torch
 
@@ -3184,6 +3574,26 @@ def main():
                  ou["b32"].packer.outer_init(), torch)},
             diag_names, ("diag_filter", "diag_smooth")),
     }, c4, colored)
+    log(f"[3r] the multi-process mesh: {MP_RANKS} processes on cuda:0, "
+        f"{MP_SHARDS} shards each: the time-sharded 5a CTCRW and 3b OU_SSM, "
+        "config 4 by tracks")
+    multiprocess = phase_multiprocess(torch, card, {
+        "ctcrw_5a_time": (dict(data=data, type="CTCRW",
+                               response=["y1", "y2"], par0=[0, 0, 2, 0.8]),
+                          ctcrw_names, b64, res, sharding["ctcrw_5a_time"]),
+        "ou_ssm_3b_time": (dict(data=ou_ssm_1m(), type="OU_SSM",
+                                response=["y1", "y2"],
+                                par0=[0.0, 0.0, 1.0, 1.0]),
+                           diag_names, ou["b64"], ou["res"],
+                           sharding["ou_ssm_3b_time"]),
+    }, c4, sharding)
+    log("[3s] config 3: the 1,500-step irregular 2-D CTCRW track, f32 and "
+        "f64")
+    c3 = phase_config3(torch, card)
+    log("[3t] fit(profile_dir=...) at config 5a, and sdreport_mode "
+        "'device' against 'host' at 5a and config 2")
+    prof_fd = phase_profile_fd(torch, card, data, b64, res.par,
+                               closed["config2_ou_smooth"])
 
     log("[4] kernels vs plain at the fit's shapes, and times")
     ops_k, ops_p = cf.OPS["kernels"], cf.OPS["plain"]
@@ -3304,6 +3714,13 @@ def main():
                     sharding[case]["launches_fit"][e["name"]]
                 e["launches_time_sharded_per_nllk_grad"] = \
                     sharding[case]["launches_per_nllk_grad"][e["name"]]
+                mp = multiprocess[case]
+                e["launches_multiprocess_fit_rank0"] = \
+                    mp["launches_fit"][e["name"]]
+                e["launches_multiprocess_per_nllk_grad_rank0"] = \
+                    mp["launches_per_nllk_grad"][e["name"]]
+        if e["name"] in c3["launches_fit"]:
+            e["launches_config3_fit"] = c3["launches_fit"][e["name"]]
         if e.get("device_ms"):  # the bound's share of the device time
             e["share"] = e["bound_ms"] / e["device_ms"]
     fit_line["kernel_checks_diag"] = worst_diag
@@ -3322,6 +3739,9 @@ def main():
     fit_line["user_H_3o"] = user_h
     fit_line["eseal_3p"] = eseal
     fit_line["sharding_3q"] = sharding
+    fit_line["multiprocess_3r"] = multiprocess
+    fit_line["config3_3s"] = c3
+    fit_line["profile_fd_3t"] = prof_fd
     for fit, times in ((ou, ou_times), (bm, bm_times)):
         fit_line[fit["typ"]] = {"fit": fit["summary"], **times}
     fit_line["chip_smoke_s"] = time.time() - t_main

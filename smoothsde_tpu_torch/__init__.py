@@ -11,8 +11,9 @@ smooths and random effects integrated out by the Laplace approximation. The devi
 `SDE(..., device="cuda")` by default, `device="cpu"` for the plain
 versions.
 
-The exports are the JAX package's, less `enable_compilation_cache`: the
-JAX persistent-cache machinery (utils/cache.py) has no counterpart here.
+The exports are the JAX package's. `enable_compilation_cache`
+(utils/cache.py) re-points where the compiled kernel library is kept,
+the port's compile-once cache.
 """
 
 __version__ = "0.1.0"
@@ -21,6 +22,8 @@ __version__ = "0.1.0"
 # without the formula and fitting layers.
 _LAZY = {
     "SDE": ("smoothsde_tpu_torch.api.sde", "SDE"),
+    "enable_compilation_cache": ("smoothsde_tpu_torch.utils.cache",
+                                 "enable_compilation_cache"),
     "MODEL_TYPES": ("smoothsde_tpu_torch.models.registry", "MODEL_TYPES"),
     "get_model_spec": ("smoothsde_tpu_torch.models.registry",
                        "get_model_spec"),

@@ -18,7 +18,8 @@ kernels and the Laplace layer's second-order quantities on a
 forward-mode twin (infer/objective.py `loglik_ad`); with a user H or P0,
 and ESEAL_SSM, on the generic full-state filter (ops/kalman.py), the
 parallel one on a card. `fit(mesh=..., mesh_axis="tracks" | "time")`
-shards the likelihood over a device mesh (parallel/).
+shards the likelihood over a device mesh (parallel/), across processes
+too.
 
 The device and the working type are explicit: `device="cuda"` (the
 default) runs the hand-written CUDA kernels, `device="cpu"` their plain
@@ -388,8 +389,11 @@ class SDE:
         kind, or "auto": every card, or the CPU, `auto_mesh`) the
         likelihood is sharded over its axis `mesh_axis`: "tracks" (whole
         tracks per shard) or "time" (one long sequence cut into chunks,
-        stitched across their edges); parallel/dist.py. The reference
-        has no counterpart (it is single-threaded, nllk_sde.hpp:77-84)."""
+        stitched across their edges); parallel/dist.py. Under an
+        initialized torch.distributed group of several processes "auto"
+        is a ("dcn", mesh_axis) mesh over them (each runs the same fit on
+        the whole data and evaluates its own shards). The reference has
+        no counterpart (it is single-threaded, nllk_sde.hpp:77-84)."""
         from smoothsde_tpu_torch.infer.objective import build_objective
 
         if isinstance(mesh, str):
@@ -453,7 +457,8 @@ class SDE:
             verbose: Optional[bool] = None, **kwargs):
         """Fit by marginal maximum likelihood (R/sde.R:683-720); kwargs
         go to infer.fit.fit_model (method, maxiter, compute_sdreport,
-        fd_step, optimizer: "scipy" (default), "device" or "auto").
+        fd_step, profile_dir, optimizer: "scipy" (default), "device" or
+        "auto", sdreport_mode: "auto", "host" or "device").
 
         `silent` / `verbose`: the reference exposes `silent`
         (R/sde.R:683); `verbose` is the complementary alias and wins when
@@ -461,8 +466,8 @@ class SDE:
         the fixed-effect coefficients are integrated out alongside the
         smooth coefficients (TMB's random=c("coeff_fe", "coeff_re") REML
         construction). `mesh` / `mesh_axis`: fit with the likelihood
-        sharded (see `setup`); a mesh over more than one card cannot run
-        `optimizer="device"` (infer/fit.py)."""
+        sharded (see `setup`); a mesh over more than one card or process
+        cannot run `optimizer="device"` (infer/fit.py)."""
         from smoothsde_tpu_torch.infer.fit import fit_model
 
         if criterion not in ("ML", "REML"):

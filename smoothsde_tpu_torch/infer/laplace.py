@@ -78,15 +78,18 @@ class Graphed:
     stream refuses (a host sync or copy inside fn), or whose replay
     differs from the eager result on the same inputs, leaves that
     signature eager (`status` records which); any other error, an
-    out-of-memory included, propagates. Outputs are fresh tensors."""
+    out-of-memory included, propagates. Outputs are fresh tensors.
+    `eager`: a reason to run fn as it is, never captured (fn exchanges
+    data with other processes, which a replay cannot)."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, eager: Optional[str] = None):
         self.fn = fn
         self.entries = {}
-        self.status = {}
+        self.status = {} if eager is None else {"all": f"eager ({eager})"}
+        self.eager = eager
 
     def __call__(self, *args):
-        if not args[0].is_cuda:
+        if not args[0].is_cuda or self.eager is not None:
             return self.fn(*args)
         key = tuple((a.shape, a.dtype, a.device) for a in args)
         if key not in self.entries:
@@ -128,15 +131,18 @@ class Graphed:
 
 def make_laplace(joint_nllk: Callable, packer,
                  joint_nllk_ad: Optional[Callable] = None,
-                 hess_plan: Optional[dict] = None):
+                 hess_plan: Optional[dict] = None,
+                 eager: Optional[str] = None):
     """Build marginal_nllk(outer, b0) -> (value, bhat) for a packed
     objective: differentiable in `outer` (a tensor); b0 is the inner warm
     start (treated as a constant). Without inner coefficients the
     marginal is the joint nllk and bhat is empty. `joint_nllk_ad`: the
     forward-mode-capable twin of `joint_nllk` (the same function), which
     carries every second-order quantity; `hess_plan`: a
-    `plan_coloring` plan for H_bb. `marginal_nllk.graphs` lists the
-    twin's graphed functions (their `status` says which were captured)."""
+    `plan_coloring` plan for H_bb; `eager`: a reason to capture no CUDA
+    graph (a likelihood summed across processes). `marginal_nllk.graphs`
+    lists the twin's graphed functions (their `status` says which were
+    captured)."""
     n_inner = packer.n_inner
     if n_inner == 0:
         def marginal_trivial(outer, b0):
@@ -182,10 +188,10 @@ def make_laplace(joint_nllk: Callable, packer,
         return cross, g_o, g_b
 
     graphs = {
-        "hess": Graphed(hess_b),
-        "value_grad": Graphed(value_grad_b),
-        "batch": Graphed(vmap(f_ad, in_dims=(None, 0))),
-        "tail": Graphed(tail),
+        "hess": Graphed(hess_b, eager),
+        "value_grad": Graphed(value_grad_b, eager),
+        "batch": Graphed(vmap(f_ad, in_dims=(None, 0)), eager),
+        "tail": Graphed(tail, eager),
     }
 
     def newton(outer, b0):

@@ -53,9 +53,14 @@ The data term is `rows_likelihood` of every row. With a `mesh`
 `rows_likelihood` over each shard's whole tracks on its device, value and
 twin; on the "time" axis the time-sharded kernel cores for CTCRW, BM_SSM
 and OU_SSM with a sharded SoA scan as their twin, and the time-sharded
-full-state filter on the generic route. ESEAL_SSM's priors are added once,
-outside the sharded sum; `joint_nllk_ad_flat` stays the twin without the
-mesh (the joint precision's).
+full-state filter on the generic route. On a ("dcn", axis) mesh each
+process evaluates its shards and the parts are summed across the
+processes here (`data_term`: parallel/collectives.py `replicate` and
+`process_sum`), value and twin alike, so every process holds the same
+objective, gradient and second-order quantities. ESEAL_SSM's priors are
+added once, outside the sharded sum; `joint_nllk_ad_flat` stays the twin
+without the mesh (the joint precision's; every process evaluates it
+whole).
 
 With random effects and no REML or pinned entries, p_re >= 16 inner
 coefficients get a colored Hessian plan (infer/coloring.py).
@@ -106,6 +111,7 @@ from smoothsde_tpu_torch.ops.kalman_sqrt import (
     diag_ssm_loglik_sqrt,
 )
 from smoothsde_tpu_torch.ops.penalty import make_penalty
+from smoothsde_tpu_torch.parallel.collectives import process_sum, replicate
 
 # setup(kalman_impl=...) choices (the JAX package's); "soa" is the JAX
 # package's name for the route "auto" takes here
@@ -339,8 +345,8 @@ def rows_likelihood(spec: ModelSpec, obs, times, ids, other_data, H_array,
 
 def _check_mesh(mesh, mesh_axis: str, device: torch.device):
     """The mesh of a sharded fit, checked against the model's device."""
-    if mesh_axis not in mesh.axis_names:
-        raise ValueError(f"mesh has no axis {mesh_axis!r} "
+    if mesh_axis != mesh.axis:
+        raise ValueError(f"mesh has no shard axis {mesh_axis!r} "
                          f"(axes {mesh.axis_names})")
     if any(d.type != device.type for d in mesh.devices):
         raise ValueError(
@@ -575,13 +581,26 @@ def build_objective(
                 kalman_impl, H_array, P0, dtype=dtype)
         value, value_ad = sharded.loglik, sharded.loglik_ad
 
+    procs = None if mesh is None else mesh.processes
+
+    def data_term(fn, full):
+        """fn(full, par_matrix(full)); on a ("dcn", axis) mesh this
+        process's part, summed over the processes: the parameters enter
+        through `replicate`, whose backward sums their cotangents, the
+        one place where the gradient crosses processes."""
+        if procs is None:
+            return fn(full, par_matrix(full))
+        full = replicate(full, procs)
+        return process_sum(fn(full, par_matrix(full)), procs)
+
     def loglik(full):
-        return value(full, par_matrix(full)) + prior_terms(full)
+        return data_term(value, full) + prior_terms(full)
 
     def loglik_ad(full):
-        # the forward-mode-capable twin: no kernel, no autograd.Function,
-        # so vmap / jvp / grad compose at any order
-        return value_ad(full, par_matrix(full)) + prior_terms(full)
+        # the forward-mode-capable twin: no kernel, no autograd.Function
+        # but the collectives' (which carry their own rules), so vmap /
+        # jvp / grad compose at any order
+        return data_term(value_ad, full) + prior_terms(full)
 
     def loglik_ad_flat(full):
         # the twin without the mesh: the joint precision's Hessian

@@ -10,11 +10,12 @@ plain C interface, loaded with ctypes:
          -o <build>/libssde_kernels.so <tmp>/*.o
 
 The library lands in build/smoothsde_tpu_torch/<hash>/ at the root of
-the checkout, keyed by a hash of the sources and flags, so a changed
-source rebuilds and an unchanged one is reused. Every C entry point
-takes device pointers, scalars and the CUDA stream, launches on that
-stream without synchronising, and returns cudaGetLastError() of its
-launches; `launch` raises on a non-zero code. A few entry points take
+the checkout (or under the directory given to
+utils/cache.enable_compilation_cache), keyed by a hash of the sources
+and flags, so a changed source rebuilds and an unchanged one is reused.
+Every C entry point takes device pointers, scalars and the CUDA stream,
+launches on that stream without synchronising, and returns
+cudaGetLastError() of its launches; `launch` raises on a non-zero code. A few entry points take
 nothing and return a constant of the kernels' geometry (`constant`).
 """
 
@@ -31,7 +32,9 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
-_BUILD_ROOT = _PKG.parent / "build" / "smoothsde_tpu_torch"
+DEFAULT_BUILD_ROOT = _PKG.parent / "build" / "smoothsde_tpu_torch"
+# re-pointed by utils/cache.enable_compilation_cache
+_BUILD_ROOT = DEFAULT_BUILD_ROOT
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 

@@ -1081,6 +1081,20 @@ def stitch_seeds(totals, elem, reverse=False):
     return x.flip(1) if reverse else x
 
 
+def stitch_seeds_across(totals, elem, reverse, procs):
+    """`stitch_seeds` of this process's chunks: with procs (a
+    parallel/collectives.Processes) every process's chunk totals (C, S,
+    d) are gathered in process order, the seeds formed over all of them,
+    and this process's (C, S, d) kept; without, `stitch_seeds`."""
+    if procs is None:
+        return stitch_seeds(totals, elem, reverse)
+    from smoothsde_tpu_torch.parallel.collectives import gather_plain
+
+    S = totals.shape[1]
+    seeds = stitch_seeds(gather_plain(totals, 1, procs), elem, reverse)
+    return seeds[:, procs.rank * S:(procs.rank + 1) * S]
+
+
 def seed_chunks(seeds, excls, d, elem):
     """[combine(seed_r, excl_r)]: each chunk's exclusive block prefixes
     (suffixes) (C, lanes_r) with its seed, seeds[:, r] (C, d), composed in

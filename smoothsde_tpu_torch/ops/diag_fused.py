@@ -611,9 +611,9 @@ class DiagChunk(NamedTuple):
     dg_ext: torch.Tensor = None
 
 
-def split_diag_data(data: DiagData, sizes, devices):
-    """The DiagChunks of consecutive chunks of `sizes` steps, chunk r on
-    devices[r]."""
+def split_diag_data(data: DiagData, sizes, devices, start: int = 0):
+    """The DiagChunks of consecutive chunks of `sizes` steps from step
+    `start` on, chunk r on devices[r]."""
     one = data.resetf.new_ones(1)
     tv = (1.0 - data.resetf) * (1.0 - data.prevf)
     te = torch.cat([data.resetf[1:], one])
@@ -622,7 +622,7 @@ def split_diag_data(data: DiagData, sizes, devices):
     prevf_x = torch.cat([data.prevf, one])
     dg_x = None if data.dg is None else torch.cat(
         [data.dg, data.dg.new_zeros(data.dg.shape[0], 1)], dim=1)
-    chunks, s = [], 0
+    chunks, s = [], start
     for m, dev in zip(sizes, devices):
         chunks.append(DiagChunk(
             yd=data.yd[:, s:s + m].to(dev),
@@ -657,19 +657,20 @@ class TimeShardedDiagCore(torch.autograd.Function):
     """DiagFusedCore over a sequence cut into time chunks, each on its own
     device, stitched exactly (the scalar-state mirror of
     ops/kalman_soa.TimeShardedCtcrwCore). apply(chunks, ops_name, p0, h,
-    *rows): `split_diag_data`'s chunks, the op table of OPS, the prior
-    variance, h 0-d on the output's device, and each chunk's (t, q, c) of
+    procs, *rows): `split_diag_data`'s chunks, the op table of OPS, the
+    prior variance, h 0-d on the output's device, procs as
+    TimeShardedCtcrwCore's, and each chunk's (t, q, c) of
     `diag_chunk_rows` on its device, flattened. Forward: D1a, K2 and the
     chunk totals (5, d), their exclusive prefixes gathered on h's device
-    and composed into each chunk's block prefixes before D1b (D1b's
-    segment totals stay the chunk's own). Backward: D3a, K2 reversed, the
-    exclusive suffixes, the seeded D3b. The score of each transition
-    lands on its leaving side (the rows' last m); the entering side (the
-    first m) gets an exact zero, as in the JAX core. Returns the total
-    llk, 0-d on h's device."""
+    (and across the processes) and composed into each chunk's block
+    prefixes before D1b (D1b's segment totals stay the chunk's own).
+    Backward: D3a, K2 reversed, the exclusive suffixes, the seeded D3b.
+    The score of each transition lands on its leaving side (the rows'
+    last m); the entering side (the first m) gets an exact zero, as in
+    the JAX core. Returns the llk of the chunks, 0-d on h's device."""
 
     @staticmethod
-    def forward(ctx, chunks, ops_name, p0, h, *rows):
+    def forward(ctx, chunks, ops_name, p0, h, procs, *rows):
         ops = OPS[ops_name]
         d = chunks[0].yd.shape[0]
         state, totals, pres = [], [], []
@@ -683,8 +684,9 @@ class TimeShardedDiagCore(torch.autograd.Function):
             totals.append(ops.filter_totals(stack, h1, p0, seg))
             pres.append(ops.block_prefix(totals[-1], d, "diag_filter", False))
             state.append((p, stack, seg, h1))
-        seeds = cf.stitch_seeds(cf.chunk_totals(
-            pres, totals, d, "diag_filter", False, h.device), "diag_filter")
+        seeds = cf.stitch_seeds_across(cf.chunk_totals(
+            pres, totals, d, "diag_filter", False, h.device), "diag_filter",
+            False, procs)
         llk, saved = [], []
         for r, ((p, stack, seg, h1), pre) in enumerate(zip(
                 state, cf.seed_chunks(seeds, pres, d, "diag_filter"))):
@@ -694,6 +696,7 @@ class TimeShardedDiagCore(torch.autograd.Function):
         ctx.save_for_backward(*saved)
         ctx.chunks, ctx.plans = chunks, [s[0] for s in state]
         ctx.ops_name, ctx.p0, ctx.h_shape = ops_name, p0, h.shape
+        ctx.procs = procs
         return torch.stack(llk).sum()
 
     @staticmethod
@@ -709,9 +712,9 @@ class TimeShardedDiagCore(torch.autograd.Function):
             totals.append(ops.smooth_totals(stack, mom))
             sufs.append(ops.block_prefix(totals[-1], d, "diag_smooth", True))
             state.append((p, stack, mom, h1))
-        seeds = cf.stitch_seeds(cf.chunk_totals(
+        seeds = cf.stitch_seeds_across(cf.chunk_totals(
             sufs, totals, d, "diag_smooth", True, gbar.device),
-            "diag_smooth", True)
+            "diag_smooth", True, ctx.procs)
         grads, hbars = [], []
         for (p, stack, mom, h1), suf in zip(
                 state, cf.seed_chunks(seeds, sufs, d, "diag_smooth")):
@@ -724,12 +727,13 @@ class TimeShardedDiagCore(torch.autograd.Function):
                       torch.cat([zero, g * c_c], dim=1)]
             hbars.append((g * hb.sum()).to(gbar.device))
         return (None, None, None,
-                torch.stack(hbars).sum().reshape(ctx.h_shape), *grads)
+                torch.stack(hbars).sum().reshape(ctx.h_shape), None, *grads)
 
 
 def diag_fused_core_time_sharded(rows, chunks, h, ops_name="kernels",
-                                 p0=P0):
+                                 p0=P0, *, procs=None):
     """The time-sharded BM_SSM / OU_SSM log-likelihood (JAX
     diag_fused.py:665), differentiable in each chunk's (t, q, c) rows
     (`diag_chunk_rows`, flattened) and in h: see TimeShardedDiagCore."""
-    return TimeShardedDiagCore.apply(chunks, ops_name, float(p0), h, *rows)
+    return TimeShardedDiagCore.apply(chunks, ops_name, float(p0), h, procs,
+                                     *rows)

@@ -738,10 +738,11 @@ class CtcrwChunk(NamedTuple):
     prst0: torch.Tensor
 
 
-def split_ctcrw_data(data: CtcrwData, sizes, devices):
-    """The CtcrwChunks of consecutive chunks of `sizes` steps, chunk r on
-    devices[r]. The masks are those of par_stack_from_data, formed
-    before the split so that they see across the chunks' edges."""
+def split_ctcrw_data(data: CtcrwData, sizes, devices, start: int = 0):
+    """The CtcrwChunks of consecutive chunks of `sizes` steps from step
+    `start` on, chunk r on devices[r]. The masks are those of
+    par_stack_from_data, formed before the split so that they see across
+    the chunks' edges."""
     resetf, one = data.resetf, data.resetf.new_ones(1)
     prevf = torch.cat([one, resetf[:-1]])
     tv = (1.0 - resetf) * (1.0 - prevf)
@@ -751,7 +752,7 @@ def split_ctcrw_data(data: CtcrwData, sizes, devices):
         upd=data.validf * (1.0 - resetf), rst=resetf, dtv=data.dtv,
     )
     dt_prev = torch.cat([one, data.dtv[:-1]])
-    chunks, s = [], 0
+    chunks, s = [], start
     for m, dev in zip(sizes, devices):
         part = {k: v[s:s + m].to(dev) for k, v in rows.items()}
         chunks.append(CtcrwChunk(yd=data.yd[:, s:s + m].to(dev),
@@ -764,29 +765,37 @@ def split_ctcrw_data(data: CtcrwData, sizes, devices):
 class TimeShardedCtcrwCore(torch.autograd.Function):
     """CtcrwFusedCore over a sequence cut into time chunks, each on its
     own device, stitched exactly. apply(chunks, ops_name, p0_pos, p0_vel,
-    h, *pars): `split_ctcrw_data`'s chunks, the op table of
+    h, procs, ent, *pars): `split_ctcrw_data`'s chunks, the op table of
     ops/ctcrw_fused.py ("kernels" or "plain"), h 0-d on the output's
-    device, and each chunk's (m, d+2) par rows on its device. Returns the
-    total llk, 0-d on h's device.
+    device, each chunk's (m, d+2) par rows on its device. procs: None,
+    or the parallel/collectives.Processes of a ("dcn", axis) mesh whose
+    process holds these chunks (the same number in each, process-major);
+    ent: the par row entering the first chunk (None: its own first row,
+    at the sequence's start). Returns the llk of the chunks, 0-d on h's
+    device.
 
     Forward: each chunk's stack (its lane 0 entering from the previous
     chunk's last par row, `build_par_stack(ent=)`), K1a and K2; the
-    chunks' totals gathered on h's device give each chunk's exclusive
-    prefix (the JAX `stitch_fwd`), copied back and composed into its
-    blocks' prefixes before K1b (ops/ctcrw_fused.py `chunk_totals`,
-    `stitch_seeds`, `seed_chunks`). Backward, mirrored: K3a, K2 reversed,
-    the gathered totals' exclusive suffixes (`stitch_bwd`), the seeded
-    K3b. No autograd crosses a device: the smoother is the adjoint of
-    the filter, so each chunk's seeded K3b gives d(total llk)/d(its par)
-    directly, the score of each slot's leaving transition at the slot
-    itself; the entering row lane 0 reads from the previous chunk gets
-    no cotangent (JAX :815-830), so it is taken without a gradient. One
-    output, the total: K3b's score is the gradient of the total, so only
-    the total's cotangent has a meaning (the JAX package returns per-
-    device partials only because of shard_map's cotangent convention)."""
+    chunks' totals gathered on h's device (and across the processes)
+    give each chunk's exclusive prefix (the JAX `stitch_fwd`), copied
+    back and composed into its blocks' prefixes before K1b
+    (ops/ctcrw_fused.py `chunk_totals`, `stitch_seeds`, `seed_chunks`).
+    Backward, mirrored: K3a, K2 reversed, the gathered totals' exclusive
+    suffixes (`stitch_bwd`), the seeded K3b. No autograd crosses a
+    device: the smoother is the adjoint of the filter, so each chunk's
+    seeded K3b gives d(total llk)/d(its par) directly, the score of each
+    slot's leaving transition at the slot itself; the entering row lane 0
+    reads from the previous chunk gets no cotangent (JAX :815-830), so it
+    is taken without a gradient. One output, the llk: K3b's score is the
+    gradient of the sequence's total, so only the total's cotangent has a
+    meaning (the JAX package returns per-device partials only because of
+    shard_map's cotangent convention); across processes the objective
+    sums the processes' outputs and their cotangents
+    (parallel/collectives.py)."""
 
     @staticmethod
-    def forward(ctx, chunks, ops_name, p0_pos, p0_vel, h, *pars):
+    def forward(ctx, chunks, ops_name, p0_pos, p0_vel, h, procs, ent,
+                *pars):
         from smoothsde_tpu_torch.ops import ctcrw_fused as cf
 
         ops = cf.OPS[ops_name]
@@ -795,7 +804,9 @@ class TimeShardedCtcrwCore(torch.autograd.Function):
         for r, (c, par) in enumerate(zip(chunks, pars)):
             p = cf.plan(d, par.shape[0])
             h1 = h.reshape(1).to(par.device)
-            prev = (pars[r - 1][-1] if r else par[0]).to(par.device)
+            prev = pars[r - 1][-1] if r else (par[0] if ent is None
+                                              else ent)
+            prev = prev.to(par.device)
             stack, bd = cf.build_par_stack(
                 par[:, :d].T, par[:, d], par[:, d + 1], c.dtv, c.te, c.tvn,
                 c.yd, c.upd, c.rst, p,
@@ -803,8 +814,9 @@ class TimeShardedCtcrwCore(torch.autograd.Function):
             totals.append(ops.filter_totals(stack, bd, h1, p0_pos, p0_vel))
             pres.append(ops.block_prefix(totals[-1], d, "filter", False))
             state.append((p, stack, bd, h1))
-        seeds = cf.stitch_seeds(cf.chunk_totals(
-            pres, totals, d, "filter", False, h.device), "filter")
+        seeds = cf.stitch_seeds_across(cf.chunk_totals(
+            pres, totals, d, "filter", False, h.device), "filter", False,
+            procs)
         llk, saved = [], []
         for (p, stack, bd, h1), pre in zip(
                 state, cf.seed_chunks(seeds, pres, d, "filter")):
@@ -814,6 +826,7 @@ class TimeShardedCtcrwCore(torch.autograd.Function):
         ctx.save_for_backward(*saved)
         ctx.plans = [s[0] for s in state]
         ctx.ops_name, ctx.p0_pos, ctx.h_shape = ops_name, p0_pos, h.shape
+        ctx.procs = procs
         return torch.stack(llk).sum()
 
     @staticmethod
@@ -828,8 +841,9 @@ class TimeShardedCtcrwCore(torch.autograd.Function):
         for stack, mom, _ in triples:
             totals.append(ops.smooth_totals(stack, mom))
             sufs.append(ops.block_prefix(totals[-1], d, "smooth", True))
-        seeds = cf.stitch_seeds(cf.chunk_totals(
-            sufs, totals, d, "smooth", True, gbar.device), "smooth", True)
+        seeds = cf.stitch_seeds_across(cf.chunk_totals(
+            sufs, totals, d, "smooth", True, gbar.device), "smooth", True,
+            ctx.procs)
         par_bars, hbars = [], []
         for (stack, mom, h1), p, suf in zip(
                 triples, ctx.plans, cf.seed_chunks(seeds, sufs, d, "smooth")):
@@ -840,13 +854,15 @@ class TimeShardedCtcrwCore(torch.autograd.Function):
                                        lnbar[:, None]], dim=1))
             hbars.append(hb.to(gbar.device))
         return (None, None, None, None,
-                torch.stack(hbars).sum().reshape(ctx.h_shape), *par_bars)
+                torch.stack(hbars).sum().reshape(ctx.h_shape), None, None,
+                *par_bars)
 
 
 def fused_par_core_time_sharded(pars, chunks, h, ops_name="kernels",
-                                p0_pos=1.0, p0_vel=10.0):
+                                p0_pos=1.0, p0_vel=10.0, *, procs=None,
+                                ent=None):
     """The time-sharded CTCRW log-likelihood (JAX kalman_soa.py:673),
     differentiable in the chunks' par rows `pars` and in h: see
     TimeShardedCtcrwCore."""
     return TimeShardedCtcrwCore.apply(chunks, ops_name, float(p0_pos),
-                                      float(p0_vel), h, *pars)
+                                      float(p0_vel), h, procs, ent, *pars)

@@ -5,18 +5,19 @@ the likelihood is a sum of per-track terms: a flat multi-track dataset is
 packed into a padded (n_tracks, track_len, ...) batch, and a per-track
 likelihood is evaluated on each track and summed.
 
-The mesh is single-controller, as a JAX `Mesh` under `shard_map` is: one
-process drives every device of it. `Mesh` holds a tuple of
-`torch.device`s (repeats allowed: several shards on one device) and the
-axis names; a shard's tensors live on its device, launches on distinct
-cards stay asynchronous (the shards run concurrently; on one card in
-turn), and what crosses shards is an explicit copy (parallel/dist.py).
-It is not built on multi-process torch.distributed: NCCL refuses two
-ranks on one card and gloo reduces no more than broadcast / all_reduce
-of CUDA tensors, so a multi-rank run could not be held to the flat
-likelihood on one card, and `SDE.fit(mesh=...)` stays one call. The JAX
-package's multi-host ("dcn", axis) mesh needs several processes and is
-not ported.
+The mesh is single-controller within a process, as a JAX `Mesh` under
+`shard_map` is: one process drives every device of it. `Mesh` holds a
+tuple of this process's `torch.device`s (repeats allowed: several shards
+on one device) and the axis names; a shard's tensors live on its device,
+launches on distinct cards stay asynchronous (the shards run
+concurrently; on one card in turn), and what crosses shards is an
+explicit copy (parallel/dist.py). A ("dcn", axis) mesh adds an outer
+axis over the processes of an initialized torch.distributed process
+group (the JAX package's multi-host mesh, `auto_mesh` under several
+processes): every process holds the whole data and the replicated
+parameters, evaluates its own shards on its own devices, and the sums
+and the time chunks' totals cross processes through the collectives of
+parallel/collectives.py (gloo, on host copies of a few KB).
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from smoothsde_tpu_torch.parallel.collectives import Processes, gather_plain
 
 
 class PackedTracks(NamedTuple):
@@ -65,21 +68,59 @@ def pack_tracks(obs, times, ids, pad_multiple: int = 128, *,
 
 
 class Mesh:
-    """A one-dimensional device mesh: `devices` (a tuple of
-    torch.device, one per shard; repeats allowed) along the axis
-    `axis_names[0]`. `shape[axis]` is the shard count, as for
-    jax.sharding.Mesh."""
+    """A device mesh: `devices` (a tuple of torch.device, this process's
+    shards; repeats allowed) along the axis `axis_names[-1]`, and with
+    axis_names ("dcn", axis) an outer axis over the processes of the
+    default torch.distributed group (`processes`, a
+    collectives.Processes; every process builds the mesh, with as many
+    shards as every other). `shape` maps each axis to its length, as for
+    jax.sharding.Mesh: {"dcn": processes, axis: this process's shards}. The shards are numbered process-major: this
+    process's are `shard_offset` .. `shard_offset` + shape[axis] - 1 of
+    `n_shards`."""
 
     def __init__(self, devices, axis_names=("tracks",)):
         self.devices = tuple(torch.device(d) for d in devices)
         self.axis_names = tuple(axis_names)
-        if len(self.axis_names) != 1 or not self.devices:
-            raise ValueError("a Mesh has one axis and at least one device")
-        self.shape = {self.axis_names[0]: len(self.devices)}
+        dcn = self.axis_names[:1] == ("dcn",)
+        if len(self.axis_names) != 1 + dcn or not self.devices:
+            raise ValueError("a Mesh has one axis, or ('dcn', axis), and at "
+                             "least one device")
+        self.processes = None
+        if dcn:
+            self.processes = Processes()
+            counts = gather_plain(torch.tensor([len(self.devices)]), 0,
+                                  self.processes)
+            if not bool((counts == len(self.devices)).all()):
+                raise ValueError(f"the processes hold {counts.tolist()} "
+                                 "shards: a ('dcn', axis) mesh needs the "
+                                 "same number in every process")
+        self.shape = {self.axis: len(self.devices)}
+        if dcn:
+            self.shape = {"dcn": self.processes.size, **self.shape}
+
+    @property
+    def axis(self) -> str:
+        """The shards' axis (the inner one of a ("dcn", axis) mesh)."""
+        return self.axis_names[-1]
+
+    @property
+    def n_proc(self) -> int:
+        return self.shape.get("dcn", 1)
+
+    @property
+    def n_shards(self) -> int:
+        """Shards over every process."""
+        return self.n_proc * len(self.devices)
+
+    @property
+    def shard_offset(self) -> int:
+        """The number of this process's first shard."""
+        rank = self.processes.rank if self.processes is not None else 0
+        return rank * len(self.devices)
 
     @property
     def n_cards(self) -> int:
-        """Distinct devices the shards live on."""
+        """Distinct devices this process's shards live on."""
         return len(set(self.devices))
 
     def __repr__(self):
@@ -88,10 +129,11 @@ class Mesh:
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = "tracks",
               device=None) -> Mesh:
-    """A mesh over the first `n_devices` visible cards (all of them if
-    None), or, with `device` ("cpu", "cuda:0", ...), `n_devices` shards
-    (1 if None) on that one device: the counterpart of the JAX tests'
-    virtual CPU devices (--xla_force_host_platform_device_count)."""
+    """A one-process mesh over the first `n_devices` visible cards (all
+    of them if None), or, with `device` ("cpu", "cuda:0", ...),
+    `n_devices` shards (1 if None) on that one device: the counterpart of
+    the JAX tests' virtual CPU devices
+    (--xla_force_host_platform_device_count)."""
     if device is not None:
         return Mesh([device] * (1 if n_devices is None else n_devices),
                     (axis,))
@@ -105,10 +147,30 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "tracks",
     return Mesh([torch.device("cuda", i) for i in range(n)], (axis,))
 
 
+def _local_devices(device):
+    """This process's devices in a multi-process mesh: the one CPU for
+    "cpu", the one card of an indexed CUDA device ("cuda:1"), every
+    visible card for None or "cuda"."""
+    if device is not None:
+        device = torch.device(device)
+        if device.type == "cpu" or device.index is not None:
+            return [device]
+    return list(make_mesh(None).devices)
+
+
 def auto_mesh(axis: str = "tracks", device=None) -> Mesh:
     """A mesh over every device of the kind of `device`: every visible
     card for None or a CUDA device, the one CPU for "cpu"
-    (`SDE.fit(mesh="auto")` passes the model's device)."""
+    (`SDE.fit(mesh="auto")` passes the model's device). Under an
+    initialized torch.distributed group of more than one process, a
+    ("dcn", axis) mesh of shape (processes, this process's devices,
+    `_local_devices`): the JAX package's multi-host layout, the outer
+    axis across processes, each process's shards on its own devices."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        return Mesh(_local_devices(device), ("dcn", axis))
     if device is not None and torch.device(device).type == "cpu":
         return make_mesh(1, axis, device="cpu")
     return make_mesh(None, axis)
@@ -123,22 +185,26 @@ def shard_sizes(n: int, n_shards: int):
 
 def shard_batch(tree, mesh: Mesh, axis: str = "tracks"):
     """Split a PackedTracks-style tuple of tensors along its leading axis
-    into mesh.shape[axis] contiguous shards: a list with one tuple of the
-    same type per shard, each on its shard's device."""
-    n_shards = mesh.shape[axis]
+    into mesh.n_shards contiguous shards: a list with one tuple of the
+    same type for each of this process's shards, each on its shard's
+    device (every shard on a one-process mesh)."""
+    if axis != mesh.axis:
+        raise ValueError(f"mesh has no shard axis {axis!r}")
     leaves = list(tree)
-    sizes = shard_sizes(leaves[0].shape[0], n_shards)
+    sizes = shard_sizes(leaves[0].shape[0], mesh.n_shards)
     parts = [x.split(sizes) for x in leaves]
-    return [type(tree)(*(p[r].to(mesh.devices[r]) for p in parts))
-            for r in range(n_shards)]
+    off = mesh.shard_offset
+    return [type(tree)(*(p[off + r].to(dev) for p in parts))
+            for r, dev in enumerate(mesh.devices)]
 
 
 def batched_loglik(per_track_loglik, packed, *args):
     """The sum over tracks of per_track_loglik(obs_k, times_k, length_k,
     *args) -> 0-d tensor, for a PackedTracks or the shards of
     `shard_batch` (each shard's sum on its device, the total on the first
-    shard's). A Python loop over the tracks: a per-track likelihood may
-    branch on its data."""
+    shard's; on a ("dcn", axis) mesh this process's shards' sum, which
+    parallel/collectives.process_sum adds up). A Python loop over the
+    tracks: a per-track likelihood may branch on its data."""
     shards = [packed] if isinstance(packed, PackedTracks) else list(packed)
     out = shards[0].obs.device
     total = []

@@ -33,6 +33,18 @@ Every builder returns `Sharded(loglik, loglik_ad)`: the value route and
 its twin, each fn(full, par_full) -> 0-d tensor on par_full's device,
 par_full the (n, n_par) linear predictor on the model's device. The data
 term only: ESEAL_SSM's priors are added once by the objective.
+
+On a ("dcn", axis) mesh (parallel/batching.py) the shards are numbered
+over every process and each process builds and evaluates only its own
+(`Mesh.shard_offset`): its tracks, or its time chunks, whose chunk
+totals the stitch gathers across the processes (the kernel cores, and
+parallel/time_scan.py for the twin and the generic filter). Each
+builder's functions then return this process's part of the sum;
+infer/objective.py adds the parts up (parallel/collectives.py
+`replicate` / `process_sum`), the one place where the likelihood and its
+gradient cross processes. Every process holds the whole data and the
+replicated par_full; a chunk's entering par row is read from it, so no
+exchange is needed for it.
 """
 
 from __future__ import annotations
@@ -42,7 +54,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from smoothsde_tpu_torch.parallel.batching import Mesh, shard_sizes
+from smoothsde_tpu_torch.parallel.batching import Mesh
+from smoothsde_tpu_torch.parallel.time_scan import process_rows
 
 
 class PackedLayout(NamedTuple):
@@ -134,20 +147,24 @@ def build_sharded_loglik(
     """The likelihood with tracks sharded over `mesh`'s `axis`: each
     shard's whole tracks through `rows_likelihood` on its device (empty
     shards, when there are fewer tracks, hold nothing); the shards'
-    values are summed on par_full's device. H_array: (n, m, m)."""
+    values are summed on par_full's device (this process's shards on a
+    ("dcn", axis) mesh). H_array: (n, m, m)."""
     from smoothsde_tpu_torch.infer.objective import rows_likelihood
 
+    _check_axis(mesh, axis)
     other_data = dict(other_data or {})
-    n_dev = int(mesh.shape[axis])
+    n_dev = mesh.n_shards
     layout = pack_layout(times, ids, n_dev)
     per = len(layout.lengths) // n_dev
     starts = np.concatenate([[0], np.cumsum(layout.lengths)])
-    shards, sizes = [], []
-    for r, dev in enumerate(mesh.devices):
+    shards, sizes, first = [], [], None
+    for j, dev in enumerate(mesh.devices):
+        r = mesh.shard_offset + j
         k0, k1 = r * per, min((r + 1) * per, layout.n_tracks)
         if k0 >= k1:
             continue
         s, e = int(starts[k0]), int(starts[k1])
+        first = s if first is None else first
         rows = {k: np.asarray(v)[s:e] for k, v in other_data.items()
                 if k in _ROW_DATA}
         rows.update({k: v for k, v in other_data.items()
@@ -159,11 +176,19 @@ def build_sharded_loglik(
             kalman_impl, dtype=dtype, device=dev)
         shards.append((lik, dev))
         sizes.append(e - s)
+    n = len(ids)
+    first = first or 0
+    # this process's rows, one contiguous range, cut by one split (its
+    # backward one concatenation)
+    cut = [first, *sizes, n - first - sum(sizes)]
 
     def summed(which):
         def loglik(full, par_full):
+            parts = par_full.split(cut)[1:-1]
+            if not shards:  # a process without tracks: a zero on the graph
+                return par_full[:0].sum()
             vals = []
-            for (lik, dev), part in zip(shards, par_full.split(sizes)):
+            for (lik, dev), part in zip(shards, parts):
                 f = {k: full[k].to(dev) for k in _LIK_PARAMS if k in full}
                 vals.append(getattr(lik, which)(f, part.to(dev)).to(
                     par_full.device))
@@ -172,6 +197,11 @@ def build_sharded_loglik(
         return loglik
 
     return Sharded(summed("value"), summed("ad"))
+
+
+def _check_axis(mesh: Mesh, axis: str):
+    if axis != mesh.axis:
+        raise ValueError(f"mesh {mesh} shards no axis {axis!r}")
 
 
 def build_time_sharded_loglik(
@@ -208,10 +238,11 @@ def build_time_sharded_loglik(
             "time-sharded likelihood covers the Kalman family "
             "(closed-form models are GSPMD-shardable as-is)"
         )
+    _check_axis(mesh, axis)
     other_data = dict(other_data or {})
     device = torch.device(device)
-    if len(ids) < mesh.shape[axis]:
-        raise ValueError(f"{len(ids)} steps cannot fill {mesh.shape[axis]} "
+    if len(ids) < mesh.n_shards:
+        raise ValueError(f"{len(ids)} steps cannot fill {mesh.n_shards} "
                          "shards")
     if (spec.type in ("CTCRW", "BM_SSM", "OU_SSM") and H_array is None
             and P0 is None):
@@ -239,6 +270,9 @@ def build_time_sharded_loglik(
     builder = SSM_STEP_BUILDERS[spec.type]
     if spec.type == "ESEAL_SSM":
         eseal_data = [dev(other_data[k]) for k in _ROW_DATA]
+    n = len(ids)
+    lo, start, sizes = process_rows(n, mesh)
+    hi = start + sum(sizes)
 
     def loglik(full, par_full):
         if spec.type == "ESEAL_SSM":
@@ -249,7 +283,10 @@ def build_time_sharded_loglik(
             steps = builder(par_full, obs_t, None, ids_t,
                             sigma_obs=torch.exp(full["log_sigma_obs"][0]),
                             H_array=H_t, P0=P0_t, dt=dt_t)
-        return kalman_filter_time_sharded(steps, mesh, axis, local_scan)[0]
+        # this process's rows of the whole sequence's steps
+        steps = type(steps)(*(x[lo:hi] for x in steps))
+        return kalman_filter_time_sharded(steps, mesh, axis, local_scan,
+                                          n)[0]
 
     return Sharded(loglik, loglik)
 
@@ -266,17 +303,22 @@ def _build_time_sharded_fused_ctcrw(spec, obs, times, ids, mesh: Mesh,
         split_ctcrw_data,
     )
 
-    sizes = shard_sizes(len(ids), mesh.shape[axis])
+    lo, start, sizes = process_rows(len(ids), mesh)
     chunks = split_ctcrw_data(
         prepare_ctcrw_data(obs, times, ids, dtype=dtype, device="cpu"),
-        sizes, mesh.devices)
+        sizes, mesh.devices, start)
     ops_name = ops_name or _ops_name(mesh)
+    cut = [start, *sizes, len(ids) - start - sum(sizes)]
 
     def loglik(full, par_full):
         h = torch.exp(full["log_sigma_obs"][0]) ** 2
-        pars = [x.to(dev) for x, dev in zip(par_full.split(sizes),
+        pars = [x.to(dev) for x, dev in zip(par_full.split(cut)[1:-1],
                                              mesh.devices)]
-        return fused_par_core_time_sharded(pars, chunks, h, ops_name)
+        # the par row entering this process's first chunk (its own first
+        # at the sequence's start, where it is masked)
+        ent = par_full[lo].detach()
+        return fused_par_core_time_sharded(pars, chunks, h, ops_name,
+                                           procs=mesh.processes, ent=ent)
 
     return loglik
 
@@ -297,20 +339,22 @@ def _build_time_sharded_fused_diag(spec, obs, times, ids, mesh: Mesh,
         split_diag_data,
     )
 
-    sizes = shard_sizes(len(ids), mesh.shape[axis])
+    lo, start, sizes = process_rows(len(ids), mesh)
     chunks = split_diag_data(
         prepare_diag_data(spec.type, obs, times, ids, dtype=dtype,
-                          device="cpu"), sizes, mesh.devices)
+                          device="cpu"), sizes, mesh.devices, start)
     ops_name = ops_name or _ops_name(mesh)
+    cut = [start, *sizes, len(ids) - start - sum(sizes)]
 
     def loglik(full, par_full):
         h = torch.exp(full["log_sigma_obs"][0]) ** 2
-        parts = par_full.split(sizes)
+        parts = par_full.split(cut)[1:-1]
         rows = []
         for r, (c, part, dev) in enumerate(zip(chunks, parts, mesh.devices)):
-            prev = (parts[r - 1][-1] if r else part[0]).detach().to(dev)
+            prev = (parts[r - 1][-1] if r else par_full[lo]).detach().to(dev)
             rows += diag_chunk_rows(spec.type, c, part.to(dev), prev)
-        return diag_fused_core_time_sharded(rows, chunks, h, ops_name)
+        return diag_fused_core_time_sharded(rows, chunks, h, ops_name,
+                                            procs=mesh.processes)
 
     return loglik
 
@@ -338,7 +382,9 @@ def _build_time_sharded_soa_loglik(spec, obs, times, ids, mesh: Mesh,
     # a chunk's local scan: the flat twin's SoA scan on a card, the
     # log-depth "associative" on the CPU (the flat CPU twin's "track" is
     # no scan of elements)
-    sizes = shard_sizes(len(ids), mesh.shape[axis])
+    n = len(ids)
+    lo, start, sizes = process_rows(n, mesh)
+    hi = start + sum(sizes)
     dev0 = mesh.devices[0]
     local = twin_route(dev0, sizes[0]) if dev0.type == "cuda" \
         else "associative"
@@ -348,19 +394,39 @@ def _build_time_sharded_soa_loglik(spec, obs, times, ids, mesh: Mesh,
         data = df.prepare_diag_data(spec.type, obs, times, ids, dtype=dtype,
                                     device=device)
 
+    def mine(sys, update):
+        """The system's leaves cut to this process's rows (all of them on
+        one process), the update mask off at the step before its own."""
+        sys = _step_rows(sys, lo, hi)
+        mask = getattr(sys, update)
+        if lo < start:
+            mask = torch.cat([torch.zeros_like(mask[:1]), mask[1:]])
+        return sys._replace(**{update: mask})
+
     def loglik(full, par_full):
         sobs = torch.exp(full["log_sigma_obs"][0])
         if spec.type == "CTCRW":
-            sys = _ctcrw_system(par_full, None, None, None, sobs, dt=data.dtv,
-                                yd=data.yd, reset=data.resetf > 0.5,
-                                valid=data.validf > 0.5)
+            sys = mine(_ctcrw_system(
+                par_full, None, None, None, sobs, dt=data.dtv, yd=data.yd,
+                reset=data.resetf > 0.5, valid=data.validf > 0.5), "update")
             scanned = soa_sharded_prefix_scan(_combine2, _ID2, sys.elem, mesh,
-                                              axis, local)
+                                              axis, local, n)
             return _llk_from_filtered(sys, scanned.b, scanned.C)
-        sysd = df.diag_system(spec.type, par_full, None, None, None, sobs,
-                              data=data)
+        sysd = mine(df.diag_system(spec.type, par_full, None, None, None,
+                                   sobs, data=data), "updatef")
         _, bf, Cf, _, _ = soa_sharded_prefix_scan(
-            _comb1, _ID1, df.diag_elements(sysd), mesh, axis, local)
+            _comb1, _ID1, df.diag_elements(sysd), mesh, axis, local, n)
         return df.diag_llk_from_filtered(sysd, bf, Cf)
 
     return loglik
+
+
+def _step_rows(x, lo: int, hi: int):
+    """Every tensor leaf with a step axis (the last) of a system pytree
+    cut to the steps [lo, hi); 0-d tensors and numbers as they are."""
+    if isinstance(x, tuple):
+        leaves = [_step_rows(v, lo, hi) for v in x]
+        return type(x)(*leaves) if hasattr(x, "_fields") else tuple(leaves)
+    if isinstance(x, torch.Tensor) and x.dim() > 0:
+        return x[..., lo:hi]
+    return x

@@ -403,8 +403,7 @@ def test_top_level_exports_match_jax():
     import smoothsde_tpu
     import smoothsde_tpu_torch
 
-    want = set(smoothsde_tpu.__all__) - {"enable_compilation_cache"}
-    assert set(smoothsde_tpu_torch.__all__) == want
+    assert set(smoothsde_tpu_torch.__all__) == set(smoothsde_tpu.__all__)
     assert smoothsde_tpu_torch.MODEL_TYPES == smoothsde_tpu.MODEL_TYPES
     spec = smoothsde_tpu_torch.get_model_spec("CTCRW", 2)
     assert spec.param_names == smoothsde_tpu.get_model_spec(

@@ -1147,3 +1147,44 @@ def test_element_space_stitch_hook_on_card(cuda):
         want = cf.unstack(mom, cf.plan(2, n))
         assert float((got - want).abs().max()) <= 1e-10 * max(
             1.0, float(want.abs().max()))
+
+
+@pytest.mark.gpu
+def test_multiprocess_time_sharded_on_card(cuda, tmp_path):
+    """Two processes on cuda:0 (tests/torch_mp_worker.py `run_card`), two
+    time chunks each: the f64 joint nllk and gradient of a 2,000-step
+    CTCRW and OU_SSM against one process's unsharded kernels (1e-10 /
+    1e-8 of the largest component), the same bits on both ranks, each
+    kernel of the path launched twice in each process (its two chunks)."""
+    import multiprocessing
+    import os
+
+    import torch_mp_worker as worker
+
+    from smoothsde_tpu_torch import SDE
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=worker.run_card, args=(
+        r, 2, os.path.join(tmp_path, "store"), str(tmp_path)))
+        for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    alive = [p.is_alive() for p in procs]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    assert not any(alive) and [p.exitcode for p in procs] == [0, 0]
+    ranks = [dict(np.load(tmp_path / f"card{r}.npz")) for r in range(2)]
+    for k in ranks[0]:
+        assert np.array_equal(ranks[0][k], ranks[1][k]), k
+    for kind in ("CTCRW", "OU_SSM"):
+        b = SDE(**worker.time_case(kind), device="cuda",
+                dtype=torch.float64).setup()
+        v, go, _ = worker.value_grads(b, *worker.point(b.packer, 5, 0.1))
+        got = ranks[0]
+        assert abs(got[f"{kind}_v"][0] - v[0]) <= 1e-10 * abs(v[0])
+        assert np.max(np.abs(got[f"{kind}_go"] - go)) <= \
+            1e-8 * np.max(np.abs(go))
+        assert got[f"{kind}_launches"].tolist() == [2] * 6
