@@ -21,11 +21,13 @@ non-zero before the final line:
      of the path launched at every shape; and for the scalar-state
      BM_SSM and OU_SSM kernels through DiagFusedCore / DiagPlainCore;
      2b. the cross-block prefix K2 alone against its plain version: all
-     four element kinds in both directions, d in {1, 2, 3}, NB around its
-     256-block tile (1, 255, 256, 257, 773) and 31,250; f64 within 1e-10
-     and f32 (against the f64 plain version) within 1e-5 of the output's
-     scale; then its time at the diag fits' shapes (d = 2 and d = 1,
-     NB = 31,250);
+     six element kinds in both directions, d in {1, 2, 3}, NB around its
+     256-block tile (1, 255, 256, 257, 773) and 31,250, the square-root
+     kinds also around the run design's run of 4 blocks and tile of 512
+     (3, 4, 5, 511, 512, 513, 1,541); f64 within 1e-10 and f32 (against
+     the f64 plain version) within 1e-5 of the output's scale; then its
+     time at the diag fits' shapes (d = 2 and d = 1, NB = 31,250), for
+     the square-root kinds also in f64 and by CUDA kernel;
      2c. the backward kernels K3a and K3b alone against their plain
      versions: d in {1, 2, 3}, n in {80, 2,048, 5,000, 20,001} (lanes
      below, at and across their 64-lane tile, not a multiple of 4) and
@@ -187,8 +189,10 @@ before that a JSON object {"kernels": [...]} (per kernel: launches on its
 main path, f64 error against the plain version, ms and plain_ms from CUDA
 events, device_ms from the profiler, bytes and bound_us / bound_ms /
 bound_by from `bound`, share = bound_ms / device_ms, library_ms null; the
-CTCRW kernels also ms_f64 and device_ms_f64; the CTCRW and scalar-state
-kernels their launches on 3q's time-sharded fit and per sharded
+CTCRW kernels also ms_f64 and device_ms_f64, K2 `sqrt2` / `sqrt1` ms_f64
+and bound_ms_f64 and, from 2b at d = 2, their device us by CUDA kernel
+(split_us_ou_ssm_shape, split_us_f64_ou_ssm_shape); the CTCRW and
+scalar-state kernels their launches on 3q's time-sharded fit and per sharded
 nllk+grad, and on 3r's two-process fit and nllk+grad (rank 0's), the
 CTCRW kernels on 3s's fit), and the last line
 {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -698,7 +702,9 @@ def profile_device_ms(fn, reps, torch, stats=None):
     and the device's busy share of the wall time, from torch.profiler
     over `reps` calls of fn (after one warm-up call). `stats`, when
     given, receives "device_ops": the device operations (kernels, copies,
-    fills) per call."""
+    fills) per call, "kernel_counts" and "cuda_kernels": device us per
+    call by the port's CUDA kernel name (with the element type of K8 and
+    K2's kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -711,6 +717,7 @@ def profile_device_ms(fn, reps, torch, stats=None):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     per_kernel = {name: 0.0 for name, _, _ in KERNELS}
+    by_cuda = {}
     busy_us = 0.0
     ops = 0
     top = []
@@ -727,10 +734,15 @@ def profile_device_ms(fn, reps, torch, stats=None):
         name = kernel_of(key)
         if name is not None:
             per_kernel[name] += us
+        if "ssde::" in key:  # "<kernel> <element type>" for K8 and K2
+            parts = [q.split("<")[0] for q in key.split("ssde::")[1:3]]
+            cuda = " ".join(parts)
+            by_cuda[cuda] = by_cuda.get(cuda, 0.0) + us / reps
     for us, count, key in sorted(top, reverse=True)[:15]:
         log(f"    {us:9.1f} us  x{count:3d}  {key}")
     if stats is not None:
         stats["device_ops"] = ops / reps
+        stats["cuda_kernels"] = by_cuda
         stats["kernel_counts"] = {
             name: sum(e.count for e in prof.key_averages()
                       if str(e.device_type).endswith("CUDA")
@@ -951,7 +963,9 @@ def cycled(tot, d, nb, torch):
 def phase_k2(torch):
     """Phase 2b: K2 alone against its plain version on the card, all six
     element kinds in both directions, d in {1, 2, 3}, NB around its tile
-    (1, T - 1, T, T + 1, 3T + 5) and config 5a's 31,250: f64 within 1e-10
+    (1, T - 1, T, T + 1, 3T + 5) and config 5a's 31,250, the square-root
+    kinds also around the run design's run R and tile RT (R - 1, R,
+    R + 1, RT - 1, RT, RT + 1, 3RT + 5): f64 within 1e-10
     of the output's scale, f32 against the f64 plain version within 1e-5.
     Then each instantiation's time, in its direction on the fits' paths,
     at the OU_SSM fit's (d = 2) and BM_SSM fit's (d = 1) NB = 31,250, f32:
@@ -961,10 +975,15 @@ def phase_k2(torch):
 
     tots = k2_totals(torch)
     T = cf.PREFIX_TILE
+    R = cf.PREFIX_RUN
+    RT = R * cf.PREFIX_RUN_THREADS
     worst = {}
     for kind, reverse in K2_KINDS:
+        nbs = (1, T - 1, T, T + 1, 3 * T + 5, 31_250)
+        if kind in cf.PREFIX_RUN_KINDS:  # the run design's run and tile
+            nbs += (R - 1, R, R + 1, RT - 1, RT, RT + 1, 3 * RT + 5)
         for d in (1, 2, 3):
-            for nb in (1, T - 1, T, T + 1, 3 * T + 5, 31_250):
+            for nb in nbs:
                 tot = cycled(tots[kind], d, nb, torch)
                 ref = cf.block_prefix_plain(tot, d, kind, reverse)
                 got = cf.block_prefix(tot, d, kind, reverse)
@@ -993,7 +1012,8 @@ def phase_k2(torch):
             for name, (k, r) in K2_PATH.items():
                 cf.block_prefix(xs[name], d, k, r)
 
-        dev_ms, _, _ = profile_device_ms(all_k2, 10, torch)
+        st = {}
+        dev_ms, _, _ = profile_device_ms(all_k2, 10, torch, st)
         for name, (k, r) in K2_PATH.items():
             out[name][f"ms_{label}"] = cuda_ms(
                 partial(cf.block_prefix, xs[name], d, k, r), 50, 3, torch)
@@ -1002,6 +1022,35 @@ def phase_k2(torch):
             f"{name} {out[name][f'device_ms_{label}'] * 1e3:.1f} us device, "
             f"{out[name][f'ms_{label}'] * 1e3:.1f} us per call"
             for name in K2_PATH))
+        if d == 2:  # the square-root kinds' split, and their f64 times
+            x64 = {name: cycled(tots[k], d, 31_250, torch)
+                   for name, (k, _) in K2_PATH.items()
+                   if k in cf.PREFIX_RUN_KINDS}
+
+            def sqrt_k2(xs=x64):
+                for name, x in xs.items():
+                    cf.block_prefix(x, 2, *K2_PATH[name])
+
+            st64 = {}
+            dev64, _, _ = profile_device_ms(sqrt_k2, 10, torch, st64)
+            for name, x in x64.items():
+                elem = "Sqrt14" if name.endswith("sqrt2") else "Sqrt5"
+                o = out[name]
+                o[f"split_us_{label}"] = {
+                    k.split()[0]: v for k, v in st["cuda_kernels"].items()
+                    if k.endswith(f" {elem}")}
+                o[f"split_us_f64_{label}"] = {
+                    k.split()[0]: v for k, v in st64["cuda_kernels"].items()
+                    if k.endswith(f" {elem}")}
+                o[f"device_ms_f64_{label}"] = dev64[name]
+                o[f"ms_f64_{label}"] = cuda_ms(
+                    partial(cf.block_prefix, x, 2, *K2_PATH[name]), 50, 3,
+                    torch)
+                log(f"[2b] {name} at d=2, NB=31250, device us by CUDA "
+                    f"kernel: f32 {json.dumps(o[f'split_us_{label}'])}, "
+                    f"f64 {json.dumps(o[f'split_us_f64_{label}'])}; f64 "
+                    f"{o[f'device_ms_f64_{label}'] * 1e3:.1f} us device, "
+                    f"{o[f'ms_f64_{label}'] * 1e3:.1f} us per call")
     return out
 
 
@@ -2936,8 +2985,9 @@ def slice_kernel_checks(torch, b32, b64, d32, d64, x5a, ou):
     3b's OU_SSM elements at its optimum; each against its plain version
     (f64, max abs error within 1e-8 of the output's scale), its time and
     its plain version's (f32, CUDA events), its bound, and the device
-    time of one call of each (profiler). Returns {kernel name:
-    measurements}."""
+    time of one call of each (profiler). K2 `sqrt2` / `sqrt1` also in
+    f64 (CUDA events, bound; their device time by CUDA kernel is phase
+    2b's). Returns {kernel name: measurements}."""
     from smoothsde_tpu_torch.ops import ctcrw_fused as cf
     from smoothsde_tpu_torch.ops import scan_utils as su
 
@@ -2981,6 +3031,9 @@ def slice_kernel_checks(torch, b32, b64, d32, d64, x5a, ou):
                     e["max_rel_err"] = err / scale
                     check(err <= 1e-8 * scale,
                           f"{name}: f64 kernel vs plain max abs err {err:.3e}")
+                    if name.startswith("block_prefix_"):  # K2, in f64 too
+                        e["ms_f64"] = cuda_ms(kfn, 50, 3, torch)
+                        e["bound_ms_f64"] = bound(name, p, 8)["bound_ms"]
                 else:
                     e["max_abs_err_f32"] = err
                     e["max_rel_err_f32"] = err / scale
@@ -3001,6 +3054,9 @@ def slice_kernel_checks(torch, b32, b64, d32, d64, x5a, ou):
         log(f"  {name}: {e['ms']:.4f} ms (plain {e['plain_ms']:.2f} ms), "
             f"device {e['device_ms'] * 1e3:.1f} us, bound "
             f"{e['bound_us']:.1f} us, f64 max abs err {e['max_abs_err']:.2e}")
+        if "ms_f64" in e:
+            log(f"    f64: {e['ms_f64'] * 1e3:.1f} us a call, bound "
+                f"{e['bound_ms_f64'] * 1e3:.2f} us")
     return out
 
 

@@ -17,31 +17,63 @@
 // Padding and masked elements carry exact zero factors, so every square
 // root and division that can see a zero goes through ssqrt / sdiv
 // (ops/kalman_sqrt.py `_ssqrt`, `_sdiv`): sqrt of a non-positive value is
-// 0, a / 0 is 0. The combine's own 2x2 Cholesky factors are of I + K'K,
-// never below 1, and take the plain sqrt and division.
+// 0, a / 0 is 0. Both are selects, as the plain version's torch.where:
+// the argument is replaced before the square root or the division (by 1,
+// a value that takes neither's slow path) and the result after, so no
+// branch depends on the data. The combine's own 2x2 Cholesky factors are
+// of I + K'K, never below 1, and take the plain sqrt and division.
+//
+// Division policy. combine<D> divides with D (csrc/ctcrw_common.cuh):
+// IeeeDiv, the `/` operator, by default (K8), BranchFreeDiv in K2
+// (csrc/block_prefix.cu): in f32 the correctly rounded quotient without
+// `/`'s FCHK slow-path branch, the same bits for a normal nonzero
+// denominator. Every denominator here is one: sdiv selects 1 for an exact
+// zero, a denominator of sdiv is a square root of a sum of squares (never
+// below sqrt of the least denormal, ~4e-23 in f32: normal) and the
+// combine's own are Cholesky factors >= 1. f64 keeps `/` under either.
+// Sqrt14's combine has 8 square roots and 16 divisions on a dependent
+// chain sqrt -> / -> sqrt -> / -> tria24 (sqrt -> 4 / -> sqrt), ~650
+// SASS instructions in f32; Sqrt5's one division and three square
+// roots, ~110.
+//
+// K2 takes these elements through its run design (block_prefix.cu,
+// design 2: runs of 4 blocks a thread, two passes, no single-block
+// carry), not the reduce / carry / rescan design of the moment-form
+// elements, whose ~13 combines an element cost Sqrt14 83.5 us. Measured
+// on an H100 SXM (700 W) at NB = 31,250, d = 2, device time per call:
+// Sqrt14 19.4 us f32, 71 us f64; Sqrt5 8.2 / 11.8 us. With the selects
+// and BranchFreeDiv its f32 kernels hold no FCHK and 38-53 BSSY (the
+// square roots' own range checks) against 96-132 FCHK and 303-413 BSSY
+// before.
 #pragma once
+
+#include "ctcrw_common.cuh"
 
 namespace ssde {
 
 template <typename T>
 __device__ __forceinline__ T ssqrt(T x) {
-  return x > T(0) ? sqrt(x) : T(0);
+  const bool pos = x > T(0);
+  const T r = sqrt(pos ? x : T(1));
+  return pos ? r : T(0);
 }
 
-template <typename T>
+template <typename D, typename T>
 __device__ __forceinline__ T sdiv(T a, T b) {
-  return b != T(0) ? a / b : T(0);
+  const bool nz = b != T(0);
+  const T q = D::div(a, nz ? b : T(1));
+  return nz ? q : T(0);
 }
 
 // Closed-form LQ of the 2 x 4 row block [x; y]: the lower-triangular
 // (l00, l10, l11) with [x; y][x; y]' = L L' (ops/kalman_sqrt._tria24).
-template <typename T>
+template <typename D, typename T>
 __device__ __forceinline__ void tria24(const T x[4], const T y[4], T& l00,
                                        T& l10, T& l11) {
   l00 = ssqrt(x[0] * x[0] + x[1] * x[1] + x[2] * x[2] + x[3] * x[3]);
   T q[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) q[i] = sdiv(x[i], l00);
+  for (int i = 0; i < 4; ++i) q[i] = sdiv<D>(x[i], l00);
   l10 = y[0] * q[0] + y[1] * q[1] + y[2] * q[2] + y[3] * q[3];
   T w[4];
 #pragma unroll
@@ -78,6 +110,7 @@ struct Sqrt14 {
     p[11 * s] = z00; p[12 * s] = z10; p[13 * s] = z11;
   }
   // x covers the earlier steps, y the later ones (_combine_sqrt2(e1, e2)).
+  template <typename D = IeeeDiv>
   __device__ static Sqrt14 combine(const Sqrt14& x, const Sqrt14& y) {
     const T p00 = x.u00, p10 = x.u10, p11 = x.u11;  // U1
     const T w00 = y.z00, w10 = y.z10, w11 = y.z11;  // Z2
@@ -88,11 +121,11 @@ struct Sqrt14 {
     const T k11 = p11 * w11;
     // Lt = chol(I + K'K); V = Z2 Lt^{-T}; W = U1 K Lt^{-T}
     const T t00 = sqrt(T(1) + k00 * k00 + k10 * k10);
-    const T t10 = (k00 * k01 + k10 * k11) / t00;
+    const T t10 = D::div(k00 * k01 + k10 * k11, t00);
     const T t11 = sqrt(T(1) + k01 * k01 + k11 * k11 - t10 * t10);
-    const T iu00 = T(1) / t00;
-    const T iu01 = -t10 / (t00 * t11);
-    const T iu11 = T(1) / t11;
+    const T iu00 = D::div(T(1), t00);
+    const T iu01 = D::div(-t10, t00 * t11);
+    const T iu11 = D::div(T(1), t11);
     const T V00 = w00 * iu00, V01 = w00 * iu01;
     const T V10 = w10 * iu00, V11 = w10 * iu01 + w11 * iu11;
     const T uk00 = p00 * k00, uk01 = p00 * k01;
@@ -145,11 +178,11 @@ struct Sqrt14 {
     // U = tria([A2 U1 Lh^{-T} | U2]), Lh = chol(I + K K')
     {
       const T h00 = sqrt(T(1) + k00 * k00 + k01 * k01);
-      const T h10 = (k00 * k10 + k01 * k11) / h00;
+      const T h10 = D::div(k00 * k10 + k01 * k11, h00);
       const T h11 = sqrt(T(1) + k10 * k10 + k11 * k11 - h10 * h10);
-      const T ju00 = T(1) / h00;
-      const T ju01 = -h10 / (h00 * h11);
-      const T ju11 = T(1) / h11;
+      const T ju00 = D::div(T(1), h00);
+      const T ju01 = D::div(-h10, h00 * h11);
+      const T ju11 = D::div(T(1), h11);
       const T y00 = p00 * ju00, y01 = p00 * ju01;
       const T y10 = p10 * ju00, y11 = p10 * ju01 + p11 * ju11;
       const T ay00 = y.a00 * y00 + y.a01 * y10;
@@ -158,7 +191,7 @@ struct Sqrt14 {
       const T ay11 = y.a10 * y01 + y.a11 * y11;
       const T r1[4] = {ay00, ay01, y.u00, T(0) * ay00};
       const T r2[4] = {ay10, ay11, y.u10, y.u11};
-      tria24(r1, r2, r.u00, r.u10, r.u11);
+      tria24<D>(r1, r2, r.u00, r.u10, r.u11);
     }
     // Z = tria([A1' V | Z1])
     {
@@ -168,7 +201,7 @@ struct Sqrt14 {
       const T av11 = x.a01 * V01 + x.a11 * V11;
       const T r1[4] = {av00, av01, x.z00, T(0) * av00};
       const T r2[4] = {av10, av11, x.z10, x.z11};
-      tria24(r1, r2, r.z00, r.z10, r.z11);
+      tria24<D>(r1, r2, r.z00, r.z10, r.z11);
     }
     return r;
   }
@@ -191,9 +224,10 @@ struct Sqrt5 {
     p[0] = A; p[s] = b; p[2 * s] = u; p[3 * s] = e; p[4 * s] = z;
   }
   // x covers the earlier steps, y the later ones (_combine_sqrt1(e1, e2)).
+  template <typename D = IeeeDiv>
   __device__ static Sqrt5 combine(const Sqrt5& x, const Sqrt5& y) {
     const T k = x.u * y.z;
-    const T M = T(1) / (T(1) + k * k);
+    const T M = D::div(T(1), T(1) + k * k);
     const T sM = sqrt(M);
     Sqrt5 r;
     r.A = y.A * M * x.A;

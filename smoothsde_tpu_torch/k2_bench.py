@@ -1,17 +1,21 @@
 """Times the cross-block prefix K2 and the CTCRW nllk+grad on one GPU.
 
     python3 smoothsde_tpu_torch/k2_bench.py [--root DIR] [--sweep]
-                                             [--fit [--k2-f64]]
+                                             [--fit [--k2-f64]] [--k2]
 
 Imports smoothsde_tpu_torch from DIR (default: the checkout holding this
 file), so that two versions of the package can be timed on one card, each
 in its own process. Prints one JSON line with:
 
   - "k2": each K2 instantiation in its direction on the fits' paths
-    (Elem14 forward, Smooth9 reverse, Elem5 forward, Smooth3 reverse), f32,
-    at NB = 31,250 blocks for d = 2 (config 5a, the OU_SSM fit) and d = 1
-    (the BM_SSM fit): device us per call (torch.profiler, 20 calls) and us
-    per wrapper call (CUDA events, 200 calls, launch included);
+    (Elem14 forward, Smooth9 reverse, Elem5 forward, Smooth3 reverse) and
+    on the square-root "pallas" value pass (Sqrt14, Sqrt5 forward), at
+    NB = 31,250 blocks for d = 2 (config 5a, the OU_SSM fit) in f32 and
+    f64, and for d = 1 (the BM_SSM fit; not the square-root kinds) in
+    f32: device us per call (torch.profiler, 20 calls), the same split by
+    K2's CUDA kernels ("split"), us per wrapper call (CUDA events, 200
+    calls, launch included) and the SHA-256 of the output's bytes (equal
+    across two versions: the kernel kept its bits);
   - "paths": nllk+grad at 1M steps, f32, of the CTCRW par-space core
     (the fit's route), the element-space `llk2_analytic` "fused" and
     "pallas" (d = 2), and the OU_SSM (d = 2) and BM_SSM (d = 1) fused
@@ -22,6 +26,7 @@ in its own process. Prints one JSON line with:
     path gave the same bits);
   - with --sweep, "sweep": the CTCRW par-space measurement for
     STEPS_PER_LANE in (16, 32, 64);
+  - with --k2, only "k2";
   - with --fit, "fit": the config-5a CTCRW fit in f32 (chip_smoke.py's
     `config5a` from DIR): wall s, evaluations, tau, nu, nllk; with
     --k2-f64 the fit's K2 calls run the kernel in f64 on the f32 totals
@@ -30,9 +35,15 @@ in its own process. Prints one JSON line with:
 
 The data are those of tools/accuracy_audit.py (rng seed 0, 1M steps,
 times = cumsum U(0.4, 0.6), obs = cumsum N(0, 0.3^2) in 2-D; its first
-column for BM_SSM), the parameters constant over the steps; the K2
-inputs are the identity plus N(0, 0.01^2) noise (K2 does the same work
-for any values). No kernel's output is checked here: chip_smoke.py does.
+column for BM_SSM), the parameters constant over the steps. The inputs
+of the moment-form K2 instantiations are the identity plus N(0, 0.01^2)
+noise (their combine does the same work for any values); those of
+`sqrt2` / `sqrt1` are real square-root totals, whose combine branches on
+zero factors: the plain phase-1 scan (ops/scan_utils.py
+`pallas_phase1_scan_plain`) of the CTCRW square-root elements over the
+2-D data (mu = (0.05, -0.02), tau = 2, nu = 1) and of the OU_SSM ones
+(mu = 0, tau = 2, kappa = 1), sigma_obs = 0.1. No kernel's output is
+checked here: chip_smoke.py does.
 """
 
 import argparse
@@ -48,10 +59,14 @@ K2 = {  # wrapper name: (element kind, reverse), as the fits call them
     "block_prefix_smooth": ("smooth", True),
     "block_prefix_diag_filter": ("diag_filter", False),
     "block_prefix_diag_smooth": ("diag_smooth", True),
+    "block_prefix_sqrt2": ("sqrt2", False),
+    "block_prefix_sqrt1": ("sqrt1", False),
 }
 K2_ELEM = {"Elem14": "block_prefix_filter", "Smooth9": "block_prefix_smooth",
            "Elem5": "block_prefix_diag_filter",
-           "Smooth3": "block_prefix_diag_smooth"}
+           "Smooth3": "block_prefix_diag_smooth",
+           "Sqrt14": "block_prefix_sqrt2", "Sqrt5": "block_prefix_sqrt1"}
+SQRT_KINDS = ("sqrt2", "sqrt1")
 
 
 def profile(fn, reps, torch):
@@ -75,7 +90,10 @@ def profile(fn, reps, torch):
         busy += us
         key = e.key
         if "block_prefix" in key:  # K2's kernels, by element type
-            key = next(n for el, n in K2_ELEM.items() if el in key)
+            name = next(n for el, n in K2_ELEM.items() if el in key)
+            sub = key.split("ssde::")[1].split("<")[0]
+            per[f"{name} {sub}"] = per.get(f"{name} {sub}", 0.0) + us / reps
+            key = name
         elif "ssde::" in key:
             key = key.split("ssde::")[1].split("<")[0]
         else:
@@ -98,31 +116,76 @@ def event_us(fn, reps, torch):
     return t0.elapsed_time(t1) / reps * 1e3
 
 
+def sqrt_totals(torch):
+    """{kind: (C, 2 * 31,250) f64 square-root totals on the card}: the
+    plain phase-1 scan of the audit data's CTCRW (`sqrt2`) and OU_SSM
+    (`sqrt1`) square-root elements (chip_smoke.py's `slice_elements`)."""
+    from chip_smoke import elem_stack, slice_elements
+
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+    from smoothsde_tpu_torch.ops import scan_utils as su
+
+    dev = torch.device("cuda")
+    n = 1_000_000
+    rng = np.random.default_rng(0)
+    times = np.cumsum(rng.uniform(0.4, 0.6, size=n))
+    obs = np.cumsum(rng.normal(size=(n, 2)) * 0.3, axis=0)
+    ids = np.zeros(n, np.int32)
+    p = cf.plan(2, n)
+    out = {}
+    with torch.no_grad():
+        for typ, kind, theta in (
+                ("CTCRW", "sqrt2", [0.05, -0.02, np.log(2.0), 0.0]),
+                ("OU_SSM", "sqrt1", [0.0, 0.0, np.log(2.0), 0.0])):
+            par = torch.tensor(theta, dtype=torch.float64,
+                               device=dev).expand(n, 4).contiguous()
+            el = slice_elements(torch, typ, par, 0.1, obs, times, ids)[kind]
+            st = elem_stack(torch, kind, el, p)
+            out[kind] = su.pallas_phase1_scan_plain(st, kind)[-1].contiguous()
+    assert all(t.shape[1] == 2 * 31_250 for t in out.values())
+    return out
+
+
 def k2_times(torch):
+    import hashlib
+
     from smoothsde_tpu_torch.ops import ctcrw_fused as cf
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    sq = sqrt_totals(torch)
     out = {}
-    for d in (2, 1):
+    for d, dtype in ((2, torch.float32), (2, torch.float64),
+                     (1, torch.float32)):
+        dt = "f32" if dtype == torch.float32 else "f64"
         xs = {}
         for name, (kind, _) in K2.items():
+            if kind in SQRT_KINDS:
+                if d == 2:
+                    xs[name] = sq[kind].to(dtype)
+                continue
             ident = torch.tensor(cf.ELEMS[kind].id_vals, device=dev)
             noise = torch.randn((len(ident), d * 31_250), device=dev,
                                 generator=gen)
-            xs[name] = (ident[:, None] + 0.01 * noise).contiguous()
+            xs[name] = (ident[:, None] + 0.01 * noise).to(dtype).contiguous()
 
         def all_k2(d=d, xs=xs):
-            for name, (kind, rev) in K2.items():
-                cf.block_prefix(xs[name], d, kind, rev)
+            for name in xs:
+                cf.block_prefix(xs[name], d, *K2[name])
 
         _, per = profile(all_k2, 20, torch)
-        for name, (kind, rev) in K2.items():
-            out[f"{name} d={d}"] = {
+        for name, x in xs.items():
+            kind, rev = K2[name]
+            got = cf.block_prefix(x, d, kind, rev)
+            torch.cuda.synchronize()
+            out[f"{name} d={d} {dt}"] = {
                 "device_us": per[name],
+                "split": {k.split(" ", 1)[1]: v for k, v in per.items()
+                          if k.startswith(f"{name} ")},
                 "event_us": event_us(
-                    lambda: cf.block_prefix(xs[name], d, kind, rev), 200,
-                    torch)}
+                    lambda: cf.block_prefix(x, d, kind, rev), 200, torch),
+                "sha256": hashlib.sha256(
+                    got.cpu().numpy().tobytes()).hexdigest()}
     return out
 
 
@@ -244,6 +307,7 @@ def main():
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--fit", action="store_true")
     ap.add_argument("--k2-f64", action="store_true")
+    ap.add_argument("--k2", action="store_true")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     # run as a script, this file's directory (the package itself) heads
@@ -266,9 +330,10 @@ def main():
         res["fit"] = fit_probe(torch, args.k2_f64)
         print(json.dumps(res), flush=True)
         return
-    paths = ["ctcrw", "ctcrw_elem_fused", "ctcrw_elem_pallas", "ou_ssm",
-             "bm_ssm"]
-    res["paths"] = path_times(torch, paths)
+    if not args.k2:
+        paths = ["ctcrw", "ctcrw_elem_fused", "ctcrw_elem_pallas", "ou_ssm",
+                 "bm_ssm"]
+        res["paths"] = path_times(torch, paths)
     res["k2"] = k2_times(torch)
     if args.sweep:
         res["sweep"] = {}

@@ -98,6 +98,12 @@ STEPS_PER_LANE = 32
 # Blocks per tile of K2's multi-block scan (kPrefixTile in
 # csrc/block_prefix.cu, which refuses a scratch sized for another tile).
 PREFIX_TILE = 256
+# K2's run design for the square-root kinds (csrc/block_prefix.cu
+# kRunThreads, kRun): a tile of PREFIX_RUN_THREADS threads, each owning
+# PREFIX_RUN consecutive blocks.
+PREFIX_RUN_KINDS = ("sqrt2", "sqrt1")
+PREFIX_RUN_THREADS = 128
+PREFIX_RUN = 4
 
 _PAR_ROWS = 10
 _N_BD = 5  # boundary rows: prev lt, ln, dt, mu, rst per lane
@@ -887,10 +893,17 @@ def block_prefix(totals, d, elem, reverse):
     if C != len(ELEMS[elem].id_vals) or lanes % d:
         raise ValueError(f"totals shape {tuple(totals.shape)} for {elem}")
     NB = lanes // d
-    ntiles = -(-NB // PREFIX_TILE)
+    # the kernel's scratch, columns per dim: the tile totals, and in the
+    # run design each thread's exclusive prefix within its tile (the C
+    # entry point refuses another count)
+    if elem in PREFIX_RUN_KINDS:
+        tile = PREFIX_RUN_THREADS * PREFIX_RUN
+        cols = -(-NB // tile) * (PREFIX_RUN_THREADS + 1)
+    else:
+        cols = -(-NB // PREFIX_TILE)
     out = torch.empty_like(totals)
-    tiles = totals.new_empty((C, d * ntiles))  # the kernel's scratch
-    _launch(f"block_prefix_{elem}", totals, out, tiles, d, NB, ntiles,
+    tiles = totals.new_empty((C, d * cols))
+    _launch(f"block_prefix_{elem}", totals, out, tiles, d, NB, cols,
             int(bool(reverse)))
     return out
 

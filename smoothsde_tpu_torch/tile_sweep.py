@@ -1,10 +1,12 @@
 """Times variants of a family of the port's kernels on one GPU: the CTCRW
 forward kernels K1a / K1b (csrc/ctcrw_filter.cu, family k1), the CTCRW
-backward kernels K3a / K3b (csrc/ctcrw_backward.cu, family k3), or the
+backward kernels K3a / K3b (csrc/ctcrw_backward.cu, family k3), the
 scalar-state kernels D1a, D1b, D3a and D3b (csrc/diag_filter.cu and
-csrc/diag_backward.cu, family diag).
+csrc/diag_backward.cu, family diag), or the run design of the cross-block
+prefix K2 for the square-root kinds `sqrt2` / `sqrt1`
+(csrc/block_prefix.cu, family k2).
 
-    python3 smoothsde_tpu_torch/tile_sweep.py --family k1|k3|diag
+    python3 smoothsde_tpu_torch/tile_sweep.py --family k1|k3|diag|k2
         [--parent DIR] [--sass] [--variant NAME=GEOMETRY[;NVCC FLAGS] ...]
 
 Compiles the family's sources of this checkout once per variant, from
@@ -37,7 +39,10 @@ suffixes from the port's own kernels):
       mu = 0, sigma_obs = 0.1);
   diag: the OU_SSM fit's (phase 3b: chip_smoke.py's `ou_ssm_1m`, d = 2,
       62,500 lanes) and the BM_SSM fit's (phase 3c: `bm_ssm_1m`, d = 1,
-      31,250 lanes), each at its simulation truth, sigma_obs = 0.1.
+      31,250 lanes), each at its simulation truth, sigma_obs = 0.1;
+  k2: the square-root totals of config 5a (`sqrt2`) and of 3b's OU_SSM
+      (`sqrt1`) at their truths, sigma_obs = 0.1 (the plain phase-1 scan
+      of chip_smoke.py's `slice_elements`; NB = 31,250, d = 2), forward.
 
 GEOMETRY is the values of the family's tile lines, comma-separated:
   k1: THREADS,MINB,DIV (lanes = threads per CUDA block, CUDA blocks per
@@ -46,6 +51,10 @@ GEOMETRY is the values of the family's tile lines, comma-separated:
       threads per lane, MINB and DIV as for k1);
   diag: S,LANES,S3,LANES3 (D1a and D1b: segments = threads per lane,
       lanes per CUDA block; then D3a's);
+  k2: THREADS,RUN (threads per CUDA block, blocks per thread; a checkout
+      without these lines, e.g. the parent of the run design, is timed
+      with the reduce / carry / rescan design's tile of 256 and its
+      scratch);
 or "default" or "@DIR"; extra nvcc flags (e.g. --use_fast_math) go after
 a ";". One JSON line.
 """
@@ -93,7 +102,16 @@ FAMILIES = {
                           "segs2=2,32,2,32", "segs8=8,32,8,32",
                           "lanes64=4,64,4,64", "segs2_64=2,64,2,64",
                           "segs8_64=8,64,8,64"]},
+    "k2": {"sources": {"block_prefix.cu": ("kRunThreads", "kRun")},
+           "kernels": {"block_prefix_sqrt2": "block_prefix.cu",
+                       "block_prefix_sqrt1": "block_prefix.cu"},
+           "variants": ["default=default", "run2=128,2", "run8=128,8",
+                        "threads64=64,4", "threads256_run2=256,2",
+                        "threads64_run2=64,2"]},
 }
+# K2's element type of each k2 entry point, and its components
+K2_ELEM = {"block_prefix_sqrt2": ("Sqrt14", 14),
+           "block_prefix_sqrt1": ("Sqrt5", 5)}
 # each kernel's inputs (the plain version's arguments) and output shapes
 ARGS = {
     "ctcrw_filter_totals": ("stack", "bd", "h", "p0_pos", "p0_vel"),
@@ -104,6 +122,8 @@ ARGS = {
     "diag_filter_scan": ("fwd", "prefix", "h", "p0"),
     "diag_smooth_totals": ("bwd", "mom"),
     "diag_score_scan": ("bwd", "mom", "suffix", "h", "p0"),
+    "block_prefix_sqrt2": ("sqrt2",),
+    "block_prefix_sqrt1": ("sqrt1",),
 }
 OUTS = {
     "ctcrw_filter_totals": lambda L, lanes: [(14, lanes)],
@@ -114,6 +134,8 @@ OUTS = {
     "diag_filter_scan": lambda L, lanes: [(L, 2, lanes), (lanes,)],
     "diag_smooth_totals": lambda L, lanes: [(3, lanes)],
     "diag_score_scan": lambda L, lanes: [(L, 4, lanes), (lanes,)],
+    "block_prefix_sqrt2": lambda L, lanes: [(14, lanes)],
+    "block_prefix_sqrt1": lambda L, lanes: [(5, lanes)],
 }
 SMEM_SM, REGS_SM, THREADS_SM = 228 * 1024, 65536, 2048  # H100 per SM
 # each kernel's inputs are cloned until the copies hold this many bytes,
@@ -172,8 +194,17 @@ def build(name, srcs, flags, out_root):
 
 def kernel_of(sym, kernels):
     """'<kernel>_<f32|f64>' of a mangled kernel symbol, or None (each
-    entry point's CUDA kernel is its name, less "ctcrw_", + "_kernel")."""
+    entry point's CUDA kernel is its name, less "ctcrw_", + "_kernel");
+    for K2, whose entry point launches several CUDA kernels templated on
+    the element type, '<entry point>/<CUDA kernel>_<f32|f64>'."""
     for k in kernels:
+        if k in K2_ELEM:
+            m = re.search(rf"\d(block_prefix_\w+?_kernel)I([fd])NS_\d+"
+                          rf"{K2_ELEM[k][0]}I", sym)
+            if m:
+                return f"{k}/{m.group(1)}_" + (
+                    "f32" if m.group(2) == "f" else "f64")
+            continue
         fn = k.removeprefix("ctcrw_")
         for code, dt in (("f", "f32"), ("d", "f64")):
             if re.search(rf"\d{fn}_kernelI{code}", sym):
@@ -235,7 +266,16 @@ def launch_shape(family, geo, kernel, scratch):
     term per item and the carry's 5 moments in STEPS + 1 slots per lane.
     D1a and D3a hold their threads' 5- and 3-comp totals, D1b their llk
     partials (a D1b without the segment scratch, `scratch` false, walks
-    one thread per lane); D3b walks one thread per lane."""
+    one thread per lane); D3b walks one thread per lane. K2's run design
+    holds its tile of E::N components (one pad slot every 32); the
+    reduce / carry / rescan design (a checkout without the run lines)
+    256 threads and E::N * 8 values."""
+    if family == "k2":
+        n = K2_ELEM[kernel][1]
+        if geo is None:
+            return 256, 8 * n
+        tile = geo[0] * geo[1]
+        return geo[0], n * (tile + tile // 32)
     if family == "diag":
         values = {"diag_filter_totals": 5, "diag_smooth_totals": 3,
                   "diag_filter_scan": int(scratch)}.get(kernel, 0)
@@ -328,8 +368,46 @@ def diag_inputs(torch, dtype, typ):
             "suffix": suffix, "p0": df.P0}
 
 
+def k2_inputs(torch, dtype):
+    """The square-root totals K2 `sqrt2` / `sqrt1` take at config 5a and
+    3b's OU_SSM, at their truths: {sqrt2, sqrt1} ((C, 62,500), the plain
+    phase-1 scan's last step, computed in f64)."""
+    from chip_smoke import config5a, elem_stack, ou_ssm_1m, slice_elements
+
+    from smoothsde_tpu_torch.ops import ctcrw_fused as cf
+    from smoothsde_tpu_torch.ops import scan_utils as su
+
+    dev = torch.device("cuda")
+    out = {}
+    with torch.no_grad():
+        for typ, kind, data, theta in (
+                ("CTCRW", "sqrt2", config5a(), [0.0, 0.0, np.log(3.0), 0.0]),
+                ("OU_SSM", "sqrt1", ou_ssm_1m(),
+                 [1.0, -0.5, np.log(2.0), 0.0])):
+            obs = np.column_stack([data["y1"], data["y2"]])
+            n = len(obs)
+            par = torch.tensor(theta, dtype=torch.float64,
+                               device=dev).expand(n, 4).contiguous()
+            el = slice_elements(torch, typ, par, 0.1, obs, data["time"],
+                                data["ID"])[kind]
+            st = elem_stack(torch, kind, el, cf.plan(2, n))
+            out[kind] = su.pallas_phase1_scan_plain(
+                st, kind)[-1].to(dtype).contiguous()
+    return out
+
+
+def k2_cols(geo, NB):
+    """Columns per dim of K2's scratch at a k2 geometry (None: the
+    reduce / carry / rescan design's tile of 256)."""
+    if geo is None:
+        return -(-NB // 256)
+    return -(-NB // (geo[0] * geo[1])) * (geo[0] + 1)
+
+
 def shapes(family):
     """[(label, inputs(torch, dtype))] of the family."""
+    if family == "k2":
+        return [("config5a_3b", k2_inputs)]
     if family == "diag":
         return [("ou_ssm_3b", lambda t, dt: diag_inputs(t, dt, "OU_SSM")),
                 ("bm_ssm_3c", lambda t, dt: diag_inputs(t, dt, "BM_SSM"))]
@@ -341,6 +419,9 @@ def plain(kern):
     from smoothsde_tpu_torch.ops import ctcrw_fused as cf
     from smoothsde_tpu_torch.ops import diag_fused as df
 
+    if kern in K2_ELEM:
+        kind = kern.removeprefix("block_prefix_")
+        return lambda tot: cf.block_prefix_plain(tot, 2, kind, False)
     if kern.startswith("diag_"):
         return getattr(df, f"{kern}_plain")
     return getattr(cf, f"{kern.removeprefix('ctcrw_')}_plain")
@@ -449,6 +530,7 @@ def main():
             info["sass"] = sass(so, kernels)
         for k_dt, pt in info["ptxas"].items():
             kern, dt = k_dt.rsplit("_", 1)
+            kern = kern.split("/")[0]
             threads, values = launch_shape(args.family,
                                            geo[kernels[kern]], kern,
                                            segs[name] is not None)
@@ -461,19 +543,23 @@ def main():
         for dtype, dt in ((torch.float32, "f32"), (torch.float64, "f64")):
             x = make_inputs(torch, dtype)
             timed(torch, args.family, libs, segs, kernels, x, label, dt,
-                  dtype, res)
+                  dtype, res, variants)
     print(json.dumps(res), flush=True)
 
 
-def timed(torch, family, libs, segs, kernels, x, label, dt, dtype, res):
+def timed(torch, family, libs, segs, kernels, x, label, dt, dtype, res,
+          variants):
     """Times every variant's kernels on the inputs x and records, per
     variant, "<kernel>_<label>_<dt>": us per launch (two rounds), the
     differences from the first variant and the error against the f64
     plain version; for D1b also the two paired times of the module
     docstring (two rounds each)."""
     names = list(libs)
-    stack = x["stack" if family != "diag" else "fwd"]
-    L, _, lanes = stack.shape
+    if family == "k2":
+        L = lanes = None
+    else:
+        stack = x["stack" if family != "diag" else "fwd"]
+        L, _, lanes = stack.shape
     stream = torch.cuda.current_stream().cuda_stream
     outs = {}
     copies = {}
@@ -493,7 +579,16 @@ def timed(torch, family, libs, segs, kernels, x, label, dt, dtype, res):
         the same stack: D1b only) of kernel kern of variant `name` on the
         inputs `ins` of its plain version. With the segment scratch, D1a
         also writes it and D1b reads the one that D1a wrote. D1b's
-        outputs end with that D1a's, which they keep alive."""
+        outputs end with that D1a's, which they keep alive. K2 (family
+        k2): totals, out, scratch, d, NB, scratch columns, forward."""
+        if family == "k2":
+            tot = ins[0]
+            C, n = tot.shape
+            cols = k2_cols(variants[name]["block_prefix.cu"], n // 2)
+            o = [torch.empty_like(tot),
+                 torch.empty((C, 2 * cols), dtype=dtype, device="cuda")]
+            return o, [tot.data_ptr(), o[0].data_ptr(), o[1].data_ptr(), 2,
+                       n // 2, cols, 0, stream], None
         o = [torch.empty(s, dtype=dtype, device="cuda")
              for s in OUTS[kern](L, lanes)]
         vals, pre, d1a_out = list(ins), None, []

@@ -824,6 +824,102 @@ def test_phase1_and_prefix_for_slice_kinds_match_plain(cuda, d, n):
                 assert e64 <= 1e-10 and e32 <= bar32, (name, e64, e32)
 
 
+def _run_design_cases():
+    """(d, NB) around K2's run design's geometry (R blocks a thread, T =
+    R x threads blocks a tile): below, at and across R and T, three
+    tiles and a ragged end, more tiles than one CUDA block's ordered
+    reduction of the tile totals covers with one total a thread, and
+    config 5a's NB = 31,250 at d = 2."""
+    R = cf.PREFIX_RUN
+    T = R * cf.PREFIX_RUN_THREADS
+    return [(1, 1), (1, R - 1), (1, R), (1, R + 1), (2, T - 1), (2, T),
+            (2, T + 1), (3, 3 * T + 5),
+            (1, T * (cf.PREFIX_RUN_THREADS + 2) + 7), (2, 31_250)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["sqrt2", "sqrt1"])
+def test_block_prefix_run_design_matches_plain(cuda, kind):
+    """K2 `sqrt2` / `sqrt1` (the run design), both directions, on real
+    square-root totals at _run_design_cases' block counts, with some
+    blocks set to the identity (padding) and some with exact zero U or Z
+    factors (a NaN row's): finite, f64 within 1e-10 of the output's
+    scale, f32 against the f64 plain version within 1e-5; two calls on
+    the same input give the same bits; one launch a call."""
+    st = _slice_stacks(2, 32 * 1024, 77, cuda)[kind]
+    base = su.pallas_phase1_scan_plain(st, kind)[-1].contiguous()
+    k = cf.ELEMS[kind]
+    ident = torch.tensor(k.id_vals, dtype=torch.float64, device=cuda)
+    # U and Z (u and z for sqrt1): the factors a NaN row leaves at zero
+    u_rows, z_rows = ((6, 7, 8), (11, 12, 13)) if kind == "sqrt2" else \
+        ((2,), (4,))
+    for d, nb in _run_design_cases():
+        tot = _cycled(base, d, nb)
+        cols = torch.arange(tot.shape[1], device=cuda)
+        tot[:, cols % 11 == 3] = ident[:, None]
+        for r in u_rows:
+            tot[r, cols % 13 == 5] = 0.0
+        for r in z_rows:
+            tot[r, cols % 17 == 9] = 0.0
+        for rev in (False, True):
+            ref = cf.block_prefix_plain(tot, d, kind, rev)
+            scale = max(1.0, float(ref.abs().max()))
+            cf.reset_launches()
+            got = cf.block_prefix(tot, d, kind, rev)
+            assert cf.LAUNCHES[f"block_prefix_{kind}"] == 1
+            again = cf.block_prefix(tot, d, kind, rev)
+            got32 = cf.block_prefix(tot.float(), d, kind, rev)
+            again32 = cf.block_prefix(tot.float(), d, kind, rev)
+            where = (kind, d, nb, rev)
+            assert bool(torch.isfinite(got).all()), where
+            assert bool(torch.isfinite(got32).all()), where
+            assert torch.equal(got, again) and torch.equal(got32, again32), \
+                where
+            e64 = float((got - ref).abs().max()) / scale
+            e32 = float((got32.double() - ref).abs().max()) / scale
+            assert e64 <= 1e-10 and e32 <= 1e-5, (where, e64, e32)
+
+
+@pytest.mark.gpu
+def test_block_prefix_kernels_by_element_type(cuda):
+    """The moment-form K2 instantiations launch the tile design's three
+    kernels (reduce, carry, rescan); the square-root ones the run
+    design's two (runs, runs rescan); each call one of each (profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    want = {
+        "filter": ("Elem14", ("block_prefix_reduce_kernel",
+                              "block_prefix_carry_kernel",
+                              "block_prefix_rescan_kernel")),
+        "smooth": ("Smooth9", ("block_prefix_reduce_kernel",
+                               "block_prefix_carry_kernel",
+                               "block_prefix_rescan_kernel")),
+        "diag_filter": ("Elem5", ("block_prefix_reduce_kernel",
+                                  "block_prefix_carry_kernel",
+                                  "block_prefix_rescan_kernel")),
+        "diag_smooth": ("Smooth3", ("block_prefix_reduce_kernel",
+                                    "block_prefix_carry_kernel",
+                                    "block_prefix_rescan_kernel")),
+        "sqrt2": ("Sqrt14", ("block_prefix_runs_kernel",
+                             "block_prefix_runs_rescan_kernel")),
+        "sqrt1": ("Sqrt5", ("block_prefix_runs_kernel",
+                            "block_prefix_runs_rescan_kernel")),
+    }
+    for kind, (elem, names) in want.items():
+        ident = torch.tensor(cf.ELEMS[kind].id_vals, device=cuda)
+        tot = ident[:, None].repeat(1, 2 * 3000).contiguous()
+        cf.block_prefix(tot, 2, kind, False)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            cf.block_prefix(tot, 2, kind, False)
+            torch.cuda.synchronize()
+        got = sorted(e.key.split("ssde::")[1].split("<")[0]
+                     for e in prof.key_averages()
+                     if "block_prefix" in e.key and elem in e.key
+                     for _ in range(e.count))
+        assert got == sorted(names), (kind, got)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("fn", ["ctcrw_sqrt", "ou_sqrt", "ou_soa"])
 def test_pallas_scans_of_slice_kinds_match_blocked(cuda, fn):
