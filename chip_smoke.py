@@ -153,7 +153,10 @@ non-zero before the final line:
      gradient at the start against the one-process unsharded kernels,
      1e-10 / 1e-8 of the largest component; f32 fits converged, nllk
      within 1e-4 of the unsharded fits'; each kernel launched twice a
-     process per nllk+grad; the walls beside 3q's) and config 4 by
+     process per nllk+grad; the walls beside 3q's; f32
+     optimizer="device" fits, every step eager, converged with the nllk
+     within 1e-4 of 3m's device fit (5a) and of the unsharded fit (3b),
+     their walls beside the scipy fits') and config 4 by
      tracks (f64 joint nllk and twin against one process, and the
      Laplace marginal against 3i's at the golden point, 1e-10 / 1e-8);
      both ranks' results equal bit for bit; a failure or hang of either
@@ -3094,7 +3097,8 @@ def mp_cases(torch, cases, kw4, z4):
     """Phase 3r's work in one process. For each time case (SDE keywords,
     the kernels of its path): the f64 joint nllk and gradient at the
     start, the f32 fit with its launches, the launches and wall of one
-    f32 nllk+grad at the optimum. For config 4 by tracks, f64 at the
+    f32 nllk+grad at the optimum, and the f32 optimizer="device" fit
+    with its steps and wall. For config 4 by tracks, f64 at the
     golden point: the joint nllk and its twin with their gradients, and
     the Laplace marginal's value and gradient with its launches."""
     from smoothsde_tpu_torch import SDE
@@ -3125,13 +3129,25 @@ def mp_cases(torch, cases, kw4, z4):
         per_eval = {k: cf.LAUNCHES[k] for k in names}
         walls = wall_ms(lambda: bundle_value_grad(torch, b32, res.par), 30,
                         3)
+        t = time.time()
+        dev = SDE(**kw, device="cuda").fit(mesh=mesh, mesh_axis="time",
+                                           optimizer="device")
+        torch.cuda.synchronize()
+        dev_wall = time.time() - t
         out[tag] = {"v64_start": v64, "g64_start": g64, "par": res.par,
                     "nllk": res.value, "convergence": res.convergence,
                     "via": res.convergence_via,
                     "evals": res.counts["evals"], "fit_wall_s": wall,
                     "launches_fit": fit_launches,
                     "launches_per_nllk_grad": per_eval,
-                    "nllk_grad_ms": walls, "case_wall_s": time.time() - t_case}
+                    "nllk_grad_ms": walls,
+                    "device_fit": {
+                        "par": dev.par, "nllk": dev.value,
+                        "convergence": dev.convergence,
+                        "via": dev.convergence_via, "steps": dev.device_steps,
+                        "graph": dev.device_graph, "counts": dev.counts,
+                        "fit_wall_s": dev_wall},
+                    "case_wall_s": time.time() - t_case}
     t_case = time.time()
     mesh = Mesh(["cuda:0"] * MP_SHARDS, ("dcn", "tracks"))
     b = SDE(**kw4, device="cuda", dtype=f64).setup(mesh=mesh)
@@ -3158,20 +3174,27 @@ def phase_multiprocess(torch, card, cases, c4, sharding):
     one card (torch.multiprocessing, gloo, a FileStore in a temporary
     directory), each with MP_SHARDS shards on cuda:0 (`mp_rank`). cases:
     {tag: (SDE keywords, kernel names, the unsharded f64 bundle, the
-    unsharded f32 fit result, 3q's case)} for the time axis (5a CTCRW,
-    3b OU_SSM); config 4 by tracks at tests/golden/config4.npz's point.
+    unsharded f32 fit result, 3q's case, the one-process f32 device fit's
+    nllk and its name)} for the time axis (5a CTCRW against 3m's device
+    fit, 3b OU_SSM against its unsharded fit); config 4 by tracks at
+    tests/golden/config4.npz's point.
     Gates: both processes exit 0 within MP_TIMEOUT_S (a failure or a
     hang in either fails the phase; a hung one is killed); both ranks'
     results equal bit for bit; time cases: f64 nllk and gradient at the
     start against the one-process unsharded kernels' (1e-10 relative,
     1e-8 of the largest component), f32 fits converge with the nllk
     within 1e-4 relative of the unsharded fits', each kernel of the path
-    launched MP_SHARDS times a process per nllk+grad; config 4: the f64
+    launched MP_SHARDS times a process per nllk+grad, the f32
+    optimizer="device" fits converge with every step eager (the reason
+    names the processes) and the nllk within 1e-4 relative of the
+    one-process device fit's; config 4: the f64
     joint nllk and its twin against the one-process unsharded ones and
     the Laplace marginal against 3i's f64 marginal at the golden point
     (1e-10 / 1e-8), each CTCRW kernel launched by the marginal
     evaluation. Prints each multi-process nllk+grad wall beside 3q's
-    one-process walls (unsharded and SHARDS chunks)."""
+    one-process walls (unsharded and SHARDS chunks), and each device
+    fit's steps, graph, flag reads per step and wall beside the scipy
+    fit's."""
     import pickle
     import tempfile
 
@@ -3229,7 +3252,9 @@ def phase_multiprocess(torch, card, cases, c4, sharding):
     r0 = ranks[0]
     out = {"card": card, "processes": MP_RANKS, "shards_per_process":
            MP_SHARDS}
-    for tag, (kw, names, _, res_flat, sh) in cases.items():
+    vias = ("optimizer", "gtol", "slope_probe", "descent_probe")
+    for tag, (kw, names, _, res_flat, sh, (dev_ref, dev_ref_name)) in \
+            cases.items():
         m = r0[tag]
         fv, fg = flat[tag]
         acc = {"f64_nllk_rel": abs(m["v64_start"] - fv) / abs(fv),
@@ -3245,9 +3270,33 @@ def phase_multiprocess(torch, card, cases, c4, sharding):
             check(m["launches_per_nllk_grad"][nm] == MP_SHARDS,
                   f"3r {tag}: {nm} launched {m['launches_per_nllk_grad'][nm]}"
                   f" times a nllk+grad in a process, not {MP_SHARDS}")
+        d = m["device_fit"]
+        ed = abs(d["nllk"] - dev_ref) / abs(dev_ref)
+        check(d["convergence"] == 0 and d["via"] in vias and ed <= 1e-4,
+              f"3r {tag}: f32 device fit over two processes: convergence "
+              f"{d['convergence']} via {d['via']}, nllk {d['nllk']} vs "
+              f"{dev_ref_name} {dev_ref}")
+        check(d["graph"] == f"eager (collectives across {MP_RANKS} "
+              f"processes)", f"3r {tag}: device fit steps ran as "
+              f"{d['graph']}")
+        device_fit = {**{k: v for k, v in d.items() if k != "par"},
+                      "par": d["par"].tolist(), "nllk_ref": dev_ref,
+                      "nllk_ref_is": dev_ref_name, "nllk_rel": ed,
+                      "flag_reads_per_step":
+                          (d["steps"] + 1) / max(d["steps"], 1),
+                      "flag_reads_per_iteration":
+                          (d["steps"] + 1) / max(d["counts"]["iterations"],
+                                                 1)}
+        log(f"[3r] {tag}: device fit over two processes {d['fit_wall_s']:.2f}"
+            f" s ({d['steps']} steps, {d['graph']}, "
+            f"{device_fit['flag_reads_per_step']:.3f} flag reads a step, "
+            f"{d['counts']['evals']} evals, via {d['via']}, nllk rel "
+            f"{ed:.2e} vs {dev_ref_name}) vs scipy {m['fit_wall_s']:.2f} s "
+            f"({m['evals']} evals), {card}")
         out[tag] = {**{k: v for k, v in m.items()
-                       if k not in ("g64_start", "par")},
+                       if k not in ("g64_start", "par", "device_fit")},
                     "par": m["par"].tolist(), "accuracy_start": acc,
+                    "device_fit": device_fit,
                     "nllk_unsharded": res_flat.value, "nllk_rel": ev,
                     "fit_wall_s_unsharded": sh["fit_wall_s_unsharded"],
                     "fit_wall_s_one_process_sharded": sh["fit_wall_s"],
@@ -3636,12 +3685,14 @@ def main():
     multiprocess = phase_multiprocess(torch, card, {
         "ctcrw_5a_time": (dict(data=data, type="CTCRW",
                                response=["y1", "y2"], par0=[0, 0, 2, 0.8]),
-                          ctcrw_names, b64, res, sharding["ctcrw_5a_time"]),
+                          ctcrw_names, b64, res, sharding["ctcrw_5a_time"],
+                          (device_opt["config5a"]["nllk"], "3m device fit")),
         "ou_ssm_3b_time": (dict(data=ou_ssm_1m(), type="OU_SSM",
                                 response=["y1", "y2"],
                                 par0=[0.0, 0.0, 1.0, 1.0]),
                            diag_names, ou["b64"], ou["res"],
-                           sharding["ou_ssm_3b_time"]),
+                           sharding["ou_ssm_3b_time"],
+                           (ou["res"].value, "unsharded fit")),
     }, c4, sharding)
     log("[3s] config 3: the 1,500-step irregular 2-D CTCRW track, f32 and "
         "f64")

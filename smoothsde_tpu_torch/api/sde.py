@@ -466,8 +466,8 @@ class SDE:
         the fixed-effect coefficients are integrated out alongside the
         smooth coefficients (TMB's random=c("coeff_fe", "coeff_re") REML
         construction). `mesh` / `mesh_axis`: fit with the likelihood
-        sharded (see `setup`); a mesh over more than one card or process
-        cannot run `optimizer="device"` (infer/fit.py)."""
+        sharded (see `setup`); on a mesh over more than one card or process
+        `optimizer="device"` runs its steps eagerly (infer/fit.py)."""
         from smoothsde_tpu_torch.infer.fit import fit_model
 
         if criterion not in ("ML", "REML"):

@@ -114,12 +114,6 @@ def make_val_grad(bundle):
     return val_grad
 
 
-def _multi_card(bundle) -> bool:
-    """The bundle's likelihood is sharded over more than one card."""
-    mesh = getattr(bundle, "mesh", None)
-    return mesh is not None and mesh.n_cards > 1
-
-
 def _multi_process(bundle) -> bool:
     """The bundle's likelihood is summed across processes (a ("dcn",
     axis) mesh)."""
@@ -127,22 +121,47 @@ def _multi_process(bundle) -> bool:
     return mesh is not None and mesh.processes is not None
 
 
+def _eager_reason(bundle) -> Optional[str]:
+    """Why `device_lbfgs` may not capture its step as a CUDA graph on this
+    bundle, or None: collectives across the processes of a ("dcn", axis)
+    mesh, or a mesh over more than one card."""
+    mesh = getattr(bundle, "mesh", None)
+    if mesh is None:
+        return None
+    if mesh.processes is not None:
+        return f"collectives across {mesh.n_proc} processes"
+    if mesh.n_cards > 1:
+        return f"{mesh.n_cards} cards"
+    return None
+
+
 def resolve_optimizer(bundle) -> str:
     """optimizer="auto": "device" on a CUDA model for every closed-form
     model, for small models (n <= 5,000 steps and <= 64 inner
     coefficients) and for models without inner coefficients (config 5a),
     where the host round trip of each evaluation outweighs the
-    evaluation; "scipy" otherwise (the JAX package's thresholds, with a
-    CUDA device where it tests for a TPU), and always on a mesh over more
-    than one card or more than one process, where "device" cannot run."""
+    evaluation; "scipy" otherwise: the JAX package's thresholds, with a
+    CUDA device where it tests for a TPU, with or without a mesh."""
     small = bundle.n_obs <= 5000 and bundle.packer.n_inner <= 64
     no_inner = bundle.packer.n_inner == 0
     on_card = bundle.device.type == "cuda"
-    return "device" if on_card and not _multi_card(bundle) \
-        and not _multi_process(bundle) and (
+    return "device" if on_card and (
         bundle.kind == "closed_form" or small or no_inner) else "scipy"
 
 
+def _agreed(val_grad, procs):
+    """val_grad whose (value, gradient, bhat) are rank 0's on every rank
+    (`collectives.first_rank`): a host loop over it (scipy's) takes the
+    same steps on every rank."""
+    from smoothsde_tpu_torch.parallel.collectives import first_rank
+
+    def vg(x, b0=None):
+        v, g, b = val_grad(x, b0)
+        flat = first_rank(torch.from_numpy(np.concatenate([[v], g, b])),
+                          procs).numpy()
+        return float(flat[0]), flat[1:1 + len(g)], flat[1 + len(g):]
+
+    return vg
 
 
 def _scipy_objective(val_grad, b_warm, timer=None):
@@ -197,9 +216,11 @@ def fit_model(
     (infer/lbfgs.py: one scalar read per step; the val+grad step is a
     CUDA graph without inner coefficients), or "auto"
     (`resolve_optimizer`). "device" on a mesh over more than one card or
-    more than one process raises ValueError: its step is one CUDA graph,
-    which holds one card's work. profile_dir: a torch.profiler trace of
-    the optimization is written there (utils/profiling.trace).
+    more than one process runs its steps eagerly (`device_graph` says
+    why), and across processes every rank reads the same flag and the
+    same copy of the result, so the ranks stop together. profile_dir: a
+    torch.profiler trace of the optimization is written there
+    (utils/profiling.trace).
     sdreport_mode: how the outer Hessian's FD gradients run, "host" (one
     evaluation and host read each), "device" (`fd_hessian`: stacked on
     the device, one copy back) or "auto" ("device" on a CUDA model,
@@ -213,17 +234,6 @@ def fit_model(
         raise ValueError(f"sdreport_mode must be one of {SDREPORT_MODES}")
     if optimizer == "auto":
         optimizer = resolve_optimizer(bundle)
-    if optimizer == "device" and _multi_card(bundle):
-        raise ValueError(
-            f"optimizer='device' cannot run on a mesh over "
-            f"{bundle.mesh.n_cards} cards: an L-BFGS step is one CUDA graph "
-            f"of one card; use optimizer='scipy'")
-    if optimizer == "device" and _multi_process(bundle):
-        raise ValueError(
-            f"optimizer='device' cannot run on a mesh over "
-            f"{bundle.mesh.n_proc} processes: an L-BFGS step is one CUDA "
-            f"graph, which cannot exchange data with another process; use "
-            f"optimizer='scipy'")
     packer = bundle.packer
     raw_val_grad = make_val_grad(bundle)
     n_evals = 0
@@ -371,13 +381,20 @@ def _fit_device(bundle, val_grad, maxiter, compute_sdreport, fd_step,
     package): the L-BFGS loop, then on the device the slope probe, the
     descent probes and the FD outer Hessian (`fd_hessian`), read back in
     one copy; then the terminal host polish where the JAX package runs
-    one (inner coefficients, or no convergence) and the sdreport."""
+    one (inner coefficients, or no convergence) and the sdreport. On a
+    ("dcn", axis) mesh the loop's flags are OR-ed over the ranks, and the
+    copy and every polish evaluation are rank 0's on every rank, so
+    every rank makes the same evaluations in the same order."""
     from scipy import optimize
 
     from smoothsde_tpu_torch.infer.lbfgs import device_lbfgs
+    from smoothsde_tpu_torch.parallel.collectives import first_rank
 
     packer = bundle.packer
     marginal = bundle.marginal  # made by make_val_grad
+    procs = bundle.mesh.processes if _multi_process(bundle) else None
+    if procs is not None:
+        val_grad = _agreed(val_grad, procs)
     dtype, device = bundle.dtype, bundle.device
     f32 = dtype == torch.float32
     n_out = packer.n_outer
@@ -389,7 +406,8 @@ def _fit_device(bundle, val_grad, maxiter, compute_sdreport, fd_step,
     t0 = time.time()
     with timer.stage("device_lbfgs"), trace(profile_dir):
         r = device_lbfgs(marginal, tensor(packer.outer_init()),
-                         tensor(packer.inner_init()), maxiter=maxiter)
+                         tensor(packer.inner_init()), maxiter=maxiter,
+                         eager=_eager_reason(bundle), processes=procs)
 
         def value_at(xp):
             return marginal(xp, r.b)[0].detach()
@@ -419,6 +437,8 @@ def _fit_device(bundle, val_grad, maxiter, compute_sdreport, fd_step,
                             r.converged.to(dtype), slope_ok.to(dtype),
                             descent_ok.to(dtype)])
         vals = torch.cat([head, r.x, r.b, H_fd]).to("cpu", torch.float64)
+        if procs is not None:
+            vals = first_rank(vals, procs)
         vals = vals.numpy()
     f_hat, n_iter, n_evals, conv, s_ok, d_ok = vals[:6]
     x_hat = vals[6:6 + n_out]

@@ -17,7 +17,12 @@ Where the marginal's value and gradient need no host sync (no inner
 coefficients: the joint nllk, configs 1 and 5a) on a CUDA device, the
 step is captured once as a CUDA graph and replayed (infer/laplace.Graphed:
 kept only when its replay equals the eager step bit for bit); the Laplace
-marginal's inner Newton reads the device and runs eagerly.
+marginal's inner Newton reads the device and runs eagerly, and so does a
+step whose caller gives a reason (`eager`): a likelihood summed across
+processes (a collective cannot run inside a graph) or sharded over
+several cards. On a ("dcn", axis) mesh every process runs this loop; each
+step's flag is the OR of every rank's (`processes`), read in one
+collective, so no rank leaves the loop while another waits in a sum.
 
 Algorithm (the JAX package's): limited-memory BFGS (two-loop recursion
 over a ring buffer of m (s, y) pairs, gamma scaling, 1/||g|| before the
@@ -31,7 +36,7 @@ max(gtol_abs, gtol_rel (1 + |f|)).
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -82,7 +87,8 @@ def _val_grad(marginal):
 
 
 def device_lbfgs(marginal, x0, b0, m: int = 10, maxiter: int = 200,
-                 gtol_abs: float = 1e-3, gtol_rel: float = None
+                 gtol_abs: float = 1e-3, gtol_rel: float = None,
+                 eager: Optional[str] = None, processes=None
                  ) -> LBFGSResult:
     """Minimize marginal(x, b_warm) -> (value, bhat) from x0 with the
     inner warm start b0 (tensors on the model's device, one dtype).
@@ -90,8 +96,15 @@ def device_lbfgs(marginal, x0, b0, m: int = 10, maxiter: int = 200,
     marginal: differentiable in x (infer.laplace.make_laplace's, or the
       joint nllk when there are no inner coefficients); b_warm is carried
       from the last accepted point, as the host loop does. With no inner
-      coefficients (b0 empty) it must be free of host syncs: on a CUDA
-      device each step is then replayed from a CUDA graph.
+      coefficients (b0 empty) and no `eager` reason it must be free of
+      host syncs: on a CUDA device each step is then replayed from a CUDA
+      graph.
+    eager: a reason to run every step as it is, never captured (the
+      marginal exchanges data with other processes, or its work spans
+      several cards); `graph` then reads "eager (<reason>)".
+    processes: the parallel.collectives.Processes of a ("dcn", axis)
+      mesh whose ranks all run this loop: the flag read after each step
+      (and at the start) is the OR over the ranks.
     """
     x0 = x0.detach()
     dtype, device = x0.dtype, x0.device
@@ -210,20 +223,30 @@ def device_lbfgs(marginal, x0, b0, m: int = 10, maxiter: int = 200,
     state = (x0, f0, g0, b0, S0, S0.clone(), rho0, head0, i64(0), i64(1),
              i64(0), d0, dg0, zero + 1.0, i64(0), zero + math.inf,
              zero + 1.0, g0, b0)
-    capture = x0.is_cuda and b0.numel() == 0
+
+    def read(flag):
+        """The host's one read of a flag, OR-ed over the processes."""
+        if processes is None:
+            return bool(flag)
+        from smoothsde_tpu_torch.parallel.collectives import sum_plain
+
+        return bool(sum_plain(flag.to("cpu", torch.int64).reshape(1),
+                              processes) > 0)
+
+    capture = x0.is_cuda and b0.numel() == 0 and eager is None
     run = step
     if capture:
         from smoothsde_tpu_torch.infer.laplace import Graphed
 
         run = Graphed(step)
-    more = bool(go_on(i64(0), f0, g0, i64(0)))  # the start's one read
+    more = read(go_on(i64(0), f0, g0, i64(0)))  # the start's one read
     steps = 0
     while more:
         *state, flag = run(*state)
         steps += 1
-        more = bool(flag)  # the one read of this step
+        more = read(flag)  # the one read of this step
     st = dict(zip(_FIELDS, state))
-    graph = "eager"
+    graph = "eager" if eager is None else f"eager ({eager})"
     if capture:
         graph = next(iter(run.status.values()), "eager")
     return LBFGSResult(

@@ -77,6 +77,12 @@ def sum_plain(x, procs: Processes):
     return total.to(x.device)
 
 
+def first_rank(x, procs: Processes):
+    """Rank 0's x (same shape everywhere) on every rank, a host copy: what
+    every rank's host decisions read, so that the ranks decide alike."""
+    return _all_gather(x, procs)[0]
+
+
 def gather_plain(x, dim: int, procs: Processes):
     """Every rank's x concatenated along `dim` in rank order, on x's
     device; no autograd (the kernel cores' stitch)."""

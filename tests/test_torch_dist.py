@@ -576,7 +576,9 @@ def test_fit_with_a_mesh(case):
 
 def test_device_optimizer_and_a_multi_card_mesh():
     """optimizer="device" runs on a one-device mesh and reaches the scipy
-    optimum; over two cards it raises and "auto" takes "scipy"."""
+    optimum; with the mesh over two cards its steps run eagerly, the
+    reason in `device_graph`, to the same optimum, and "auto" applies
+    the JAX package's rule as without a mesh."""
     from smoothsde_tpu_torch.infer.fit import fit_model, resolve_optimizer
 
     kw = dict(data=_bm_tracks(), type="BM", response="z", par0=[0.0, 1.0])
@@ -585,9 +587,14 @@ def test_device_optimizer_and_a_multi_card_mesh():
                   compute_sdreport=False)
     ref = SDE(**kw, device="cpu", dtype=F64).fit(compute_sdreport=False)
     assert res.optimizer == "device" and res.convergence == 0
+    assert res.device_graph == "eager"
     assert abs(res.value - ref.value) <= 1e-6 * (1 + abs(ref.value))
     bundle = sde.bundle()
     bundle.mesh = Mesh(["cuda:0", "cuda:1"])
-    with pytest.raises(ValueError, match="2 cards"):
-        fit_model(bundle, optimizer="device")
-    assert resolve_optimizer(bundle) == "scipy"
+    two = fit_model(bundle, optimizer="device", compute_sdreport=False)
+    assert two.optimizer == "device" and two.convergence == 0
+    assert two.device_graph == "eager (2 cards)" and two.device_steps > 0
+    assert abs(two.value - ref.value) <= 1e-6 * (1 + abs(ref.value))
+    assert resolve_optimizer(bundle) == "scipy"  # a CPU model
+    bundle.device = torch.device("cuda")
+    assert resolve_optimizer(bundle) == "device"  # closed form on a card

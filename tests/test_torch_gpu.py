@@ -1251,7 +1251,10 @@ def test_multiprocess_time_sharded_on_card(cuda, tmp_path):
     time chunks each: the f64 joint nllk and gradient of a 2,000-step
     CTCRW and OU_SSM against one process's unsharded kernels (1e-10 /
     1e-8 of the largest component), the same bits on both ranks, each
-    kernel of the path launched twice in each process (its two chunks)."""
+    kernel of the path launched twice in each process (its two chunks);
+    an f64 optimizer="device" fit of the OU_SSM over the two processes,
+    every step eager, against one process's device fit (estimates 1e-8,
+    nllk 1e-10 relative)."""
     import multiprocessing
     import os
 
@@ -1284,3 +1287,12 @@ def test_multiprocess_time_sharded_on_card(cuda, tmp_path):
         assert np.max(np.abs(got[f"{kind}_go"] - go)) <= \
             1e-8 * np.max(np.abs(go))
         assert got[f"{kind}_launches"].tolist() == [2] * 6
+    one = SDE(**worker.time_case(worker.FIT_CASE), device="cuda",
+              dtype=torch.float64).fit(optimizer="device",
+                                       maxiter=worker.FIT_MAXITER)
+    got = ranks[0]
+    assert got["dev_time_conv"][0] == 0 and one.convergence == 0
+    assert worker.graph_name(got["dev_time_graph"]) == \
+        "eager (collectives across 2 processes)"
+    assert np.max(np.abs(got["dev_time_par"] - one.par)) <= 1e-8
+    assert abs(got["dev_time_value"][0] - one.value) <= 1e-10 * abs(one.value)

@@ -130,24 +130,39 @@ def test_device_fit_matches_the_scipy_fit(make):
                                rtol=1e-4, atol=1e-6)
 
 
-def _fake_bundle(device, kind, n_obs, n_inner):
+def _fake_bundle(device, kind, n_obs, n_inner, mesh=None):
     return types.SimpleNamespace(
         device=torch.device(device), kind=kind, n_obs=n_obs,
-        packer=types.SimpleNamespace(n_inner=n_inner))
+        packer=types.SimpleNamespace(n_inner=n_inner), mesh=mesh)
 
 
-@pytest.mark.parametrize("device,kind,n_obs,n_inner,want", [
+# a mesh as fit_model sees it: over two cards, or ("dcn", "time") over two
+# processes
+_MESHES = {
+    "cards": types.SimpleNamespace(n_cards=2, processes=None, n_proc=1),
+    "processes": types.SimpleNamespace(n_cards=1, processes=object(),
+                                       n_proc=2),
+}
+_AUTO_CASES = [
     ("cpu", "closed_form", 300, 0, "scipy"),
     ("cuda", "closed_form", 3000, 14, "device"),  # config 2
     ("cuda", "ssm", 1_000_000, 0, "device"),  # config 5a
     ("cuda", "ssm", 2000, 8, "device"),  # config 4
     ("cuda", "ssm", 20_000, 8, "scipy"),
     ("cuda", "ssm", 2000, 100, "scipy"),
-])
+]
+
+
+@pytest.mark.parametrize("device,kind,n_obs,n_inner,want,mesh", [
+    pytest.param(*case, mesh,
+                 id="-".join(map(str, case)) + (f"-{mesh}" if mesh else ""))
+    for mesh in (None, *_MESHES) for case in _AUTO_CASES])
 def test_auto_picks_the_jax_packages_optimizer(device, kind, n_obs, n_inner,
-                                               want):
-    assert resolve_optimizer(_fake_bundle(device, kind, n_obs, n_inner)) \
-        == want
+                                               want, mesh):
+    """The JAX package's rule, with a mesh over several cards or
+    processes as without one."""
+    bundle = _fake_bundle(device, kind, n_obs, n_inner, _MESHES.get(mesh))
+    assert resolve_optimizer(bundle) == want
 
 
 def test_auto_on_the_cpu_is_scipy_and_unknown_optimizers_raise(bm_pair):

@@ -8,13 +8,21 @@ gloo group, each with two CPU shards (one for mesh="auto"), and evaluate
 - time: a CTCRW and an OU_SSM of 2,000 steps (dcn 2 x time 2), the joint
   nllk, its gradient and the twin's value;
 - a short OU_SSM fit with mesh="auto" on the time axis;
+- optimizer="device" fits: that OU_SSM on the ("dcn", "time") mesh (the
+  joint nllk, each step eager, the FD Hessian on the device) and a BM
+  with `mu ~ s(ID, bs='re')` over 8 tracks on the ("dcn", "tracks")
+  mesh (the Laplace marginal, then the host polish);
 - `auto_mesh`'s shape (2, 1).
 
 Bars: against the JAX package's flat single-process objective value
 1e-10 relative, gradients 1e-8 of the largest component (the Laplace
 marginal also against the JAX marginal); the two ranks' results equal
-bit for bit; the fit's estimates and nllk within 1e-8 of the
-one-process port fit's. Each process is joined with its own timeout.
+bit for bit (the device fits' estimates, values, steps, graphs and
+counts among them); the scipy fit's estimates and nllk within 1e-8 of
+the one-process port fit's; the device fits' estimates within 1e-8 and
+nllk within 1e-10 relative of the one-process port device fit's, and
+within 1e-4 / 1e-6 relative of the JAX package's flat fit. Each process
+is joined with its own timeout.
 """
 
 import multiprocessing
@@ -146,3 +154,50 @@ def test_fit_matches_the_one_process_fit(ranks):
     _close(res["fit_value"][0], one.value, rel=1e-8)
     np.testing.assert_allclose(res["fit_cov"], one.cov_fixed, rtol=1e-6,
                                atol=1e-12)
+
+
+# the device fits: (npz tag, SDE keywords, fit keywords)
+DEVICE_FITS = {
+    "time": ("dev_time", lambda: worker.time_case(worker.FIT_CASE),
+             dict(maxiter=worker.FIT_MAXITER)),
+    "tracks": ("dev_tracks", worker.re_tracks,
+               dict(compute_sdreport=False)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DEVICE_FITS))
+def test_device_fit_matches_the_one_process_device_fit(ranks, case):
+    """optimizer="device" over two processes: every step eager (the
+    reason names the processes), the same optimum as one process's
+    device fit, and for the time case the FD Hessian's covariance too."""
+    tag, make, fit_kw = DEVICE_FITS[case]
+    one = SDE(**make(), device="cpu", dtype=F64).fit(optimizer="device",
+                                                     **fit_kw)
+    res = ranks[0]
+    assert one.optimizer == "device" and one.convergence == 0
+    assert res[f"{tag}_conv"][0] == 0
+    assert worker.graph_name(res[f"{tag}_graph"]) == \
+        "eager (collectives across 2 processes)"
+    np.testing.assert_allclose(res[f"{tag}_par"], one.par, rtol=0,
+                               atol=1e-8)
+    _close(res[f"{tag}_value"][0], one.value, rel=1e-10)
+    if case == "time":
+        np.testing.assert_allclose(res["dev_time_cov"], one.cov_fixed,
+                                   rtol=1e-6, atol=1e-12)
+    else:
+        np.testing.assert_allclose(res["dev_tracks_bhat"], one.bhat,
+                                   rtol=0, atol=1e-8)
+
+
+@pytest.mark.parametrize("case", sorted(DEVICE_FITS))
+def test_device_fit_matches_the_jax_flat_fit(ranks, case):
+    tag, make, fit_kw = DEVICE_FITS[case]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        want = JaxSDE(**make()).fit(**{**fit_kw,
+                                       "compute_sdreport": False})
+    res = ranks[0]
+    assert abs(res[f"{tag}_value"][0] - want.value) \
+        <= 1e-6 * abs(want.value)
+    np.testing.assert_allclose(res[f"{tag}_par"], np.asarray(want.par),
+                               rtol=0, atol=1e-4)

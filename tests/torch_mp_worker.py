@@ -1,8 +1,9 @@
 """One rank of the port's multi-process runs, for
 tests/test_torch_multiprocess.py: the data (NumPy, from seeds), and
 `run`, which joins a gloo group of two processes on the CPU, builds each
-case on a ("dcn", axis) mesh of two CPU shards a process, and writes its
-results to <out>/rank<r>.npz. Imports torch and the port only (the
+case on a ("dcn", axis) mesh of two CPU shards a process (fits with
+optimizer="scipy" and "device" among them), and writes its results to
+<out>/rank<r>.npz. Imports torch and the port only (the
 parent test holds the results against the JAX package).
 """
 
@@ -111,6 +112,45 @@ FIT_CASE = "OU_SSM"
 FIT_MAXITER = 30
 
 
+def re_tracks(seed=7, K=8, Lk=60):
+    """K Brownian tracks of Lk irregular steps, each with its own drift
+    mu_k = 0.5 + 0.4 z_k, and the SDE keywords of a BM with `mu ~ s(ID,
+    bs='re')`: a Laplace model (K inner coefficients) whose marginal costs
+    milliseconds on the CPU."""
+    rng = np.random.default_rng(seed)
+    rows = {"ID": [], "time": [], "z": []}
+    for k in range(K):
+        mu_k = 0.5 + 0.4 * rng.normal()
+        t = np.cumsum(rng.uniform(0.4, 0.6, Lk))
+        dt = np.diff(t)
+        z = np.concatenate([[0.0], np.cumsum(
+            mu_k * dt + 0.8 * np.sqrt(dt) * rng.normal(size=Lk - 1))])
+        rows["ID"] += [f"a{k}"] * Lk
+        rows["time"] += t.tolist()
+        rows["z"] += z.tolist()
+    data = {k: np.asarray(v) for k, v in rows.items()}
+    return dict(formulas={"mu": "~s(ID, bs='re')", "sigma": "~1"},
+                data=data, type="BM", response="z", par0=[0.5, 1.0])
+
+
+def graph_name(a):
+    """`device_graph` back from fit_arrays' bytes."""
+    return bytes(np.asarray(a, np.uint8)).decode()
+
+
+def fit_arrays(tag, fit):
+    """A FitResult's `par`, `value`, `convergence`, `device_steps`,
+    `device_graph` (its UTF-8 bytes) and `counts` (its values in key
+    order) as arrays under `tag`_*."""
+    return {f"{tag}_par": fit.par, f"{tag}_value": np.array([fit.value]),
+            f"{tag}_conv": np.array([fit.convergence]),
+            f"{tag}_steps": np.array([fit.device_steps]),
+            f"{tag}_graph": np.frombuffer(
+                str(fit.device_graph).encode(), np.uint8),
+            f"{tag}_counts": np.array([fit.counts[k]
+                                       for k in sorted(fit.counts)])}
+
+
 def run(rank, world, store, out):
     """Rank `rank` of `world` processes (a FileStore at `store`): every
     case of the module docstring, written to <out>/rank<rank>.npz."""
@@ -143,6 +183,14 @@ def run(rank, world, store, out):
         mesh="auto", mesh_axis="time", maxiter=FIT_MAXITER)
     res.update(fit_par=fit.par, fit_value=np.array([fit.value]),
                fit_cov=fit.cov_fixed)
+    dev = SDE(**time_case(FIT_CASE), device="cpu", dtype=f64).fit(
+        mesh=Mesh(["cpu"] * 2, ("dcn", "time")), mesh_axis="time",
+        optimizer="device", maxiter=FIT_MAXITER)
+    res.update(fit_arrays("dev_time", dev), dev_time_cov=dev.cov_fixed)
+    dev_re = SDE(**re_tracks(), device="cpu", dtype=f64).fit(
+        mesh=Mesh(["cpu"] * 2, ("dcn", "tracks")), mesh_axis="tracks",
+        optimizer="device", compute_sdreport=False)
+    res.update(fit_arrays("dev_tracks", dev_re), dev_tracks_bhat=dev_re.bhat)
     np.savez(f"{out}/rank{rank}.npz", **res)
     dist.barrier()
     dist.destroy_process_group()
@@ -151,8 +199,9 @@ def run(rank, world, store, out):
 def run_card(rank, world, store, out):
     """Rank `rank` of `world` processes on cuda:0, for the card test: the
     time cases' f64 joint nllk and gradient on a ("dcn", "time") mesh of
-    two shards a process, and the kernels each process launched for
-    them, written to <out>/card<rank>.npz."""
+    two shards a process, the kernels each process launched for them,
+    and an f64 optimizer="device" fit of FIT_CASE on that mesh, written
+    to <out>/card<rank>.npz."""
     import torch
     import torch.distributed as dist
 
@@ -171,6 +220,10 @@ def run_card(rank, world, store, out):
         res[f"{kind}_v"], res[f"{kind}_go"], _ = value_grads(b, outer, inner)
         res[f"{kind}_launches"] = np.array(
             [n for n in cf.LAUNCHES.values() if n])
+    fit = SDE(**time_case(FIT_CASE), device="cuda", dtype=torch.float64).fit(
+        mesh=Mesh(["cuda:0"] * 2, ("dcn", "time")), mesh_axis="time",
+        optimizer="device", maxiter=FIT_MAXITER)
+    res.update(fit_arrays("dev_time", fit))
     np.savez(f"{out}/card{rank}.npz", **res)
     dist.barrier()
     dist.destroy_process_group()
