@@ -42,6 +42,7 @@ from smoothsde_tpu_torch.infer.objective import resolve_device
 from smoothsde_tpu_torch.models.registry import get_model_spec, model_eqn
 from smoothsde_tpu_torch.utils.grids import cov_grid
 from smoothsde_tpu_torch.utils.misc import prec_to_cov
+from smoothsde_tpu_torch.utils.profiling import StageTimer
 
 
 class SDE:
@@ -102,84 +103,93 @@ class SDE:
         self._response = responses
         self._fixpar = list(fixpar or [])
 
-        cdata = ColumnData(data)
-        for r in responses:
-            if r not in cdata:
-                raise ValueError("'response' not found in 'data'")
-
-        self._spec = get_model_spec(type, len(responses))
-        param_names = list(self._spec.param_names)
-
-        if formulas is None:
-            formulas = {p: "~1" for p in param_names}
-        if list(formulas.keys()) != param_names:
-            raise ValueError(
-                f"'formulas' should have components "
-                f"{', '.join(param_names)} for the model {type}"
-            )
-        for p in self._fixpar:
-            f = formulas[p]
-            parsed = parse_formula(f if isinstance(f, str) else f.source)
-            if parsed.linear_terms or parsed.smooth_terms:
-                raise ValueError("formulas should be ~1 for fixed parameters")
-        self._formulas = {
-            p: (f if isinstance(f, str) else f.source)
-            for p, f in formulas.items()
-        }
-
-        if "ID" not in cdata:
-            warnings.warn(
-                "No ID column found in 'data', assuming same ID for all "
-                "observations",
-                stacklevel=2,
-            )
-            data = dict(data) if isinstance(data, dict) else data.copy()
-            data["ID"] = np.zeros(cdata.n, int)
+        # the build's stages (FitResult.timings of every fit of it)
+        self._build_timer = StageTimer()
+        with self._build_timer.stage("build.columns"):
             cdata = ColumnData(data)
-        if "time" not in cdata:
-            raise ValueError("'data' should have a time column")
-        self._data = cdata
-        self._id_levels = cdata.levels("ID")
-        lvl_index = {lv: i for i, lv in enumerate(self._id_levels)}
-        self._ids = np.array([lvl_index[v] for v in cdata.raw("ID").tolist()])
-        self._times = cdata.numeric("time")
-        self._obs = np.column_stack([cdata.numeric(r) for r in responses])
+            for r in responses:
+                if r not in cdata:
+                    raise ValueError("'response' not found in 'data'")
 
-        self._knots = dict(knots or {})
-        self._design = build_design(self._formulas, cdata, knots=self._knots)
-        self._terms = {
-            "ncol_fe": list(self._design.ncol_fe),
-            "ncol_re": list(self._design.ncol_re),
-            "names_fe": list(self._design.names_fe),
-            "names_re_all": list(self._design.names_re),
-            "names_re": list(self._design.ncol_re_names),
-            "fe_col_terms": list(self._design.fe_col_terms),
-            "re_col_terms": list(self._design.re_col_terms),
-        }
-        ncol_fe = list(self._design.ncol_fe)
-        self._coeff_fe = np.zeros(sum(ncol_fe))
-        self._coeff_re = np.zeros(sum(self._design.ncol_re))
-        self._lambda = np.ones(self._design.n_lambda)
-        if par0 is not None:
-            if isinstance(par0, dict):
-                missing = [p for p in param_names if p not in par0]
-                extra = [k for k in par0 if k not in param_names]
-                if missing or extra:
-                    raise ValueError(
-                        f"'par0' dict must have exactly one entry per SDE "
-                        f"parameter ({', '.join(param_names)}); missing: "
-                        f"{missing or 'none'}, unknown: {extra or 'none'}"
-                    )
-                par0 = [par0[p] for p in param_names]
-            if len(par0) != len(param_names):
+            self._spec = get_model_spec(type, len(responses))
+            param_names = list(self._spec.param_names)
+
+            if formulas is None:
+                formulas = {p: "~1" for p in param_names}
+            if list(formulas.keys()) != param_names:
                 raise ValueError(
-                    f"'par0' should be of length {len(param_names)} with "
-                    f"one entry for each SDE parameter "
-                    f"({', '.join(param_names)})"
+                    f"'formulas' should have components "
+                    f"{', '.join(param_names)} for the model {type}"
                 )
-            i0 = np.concatenate([[0], np.cumsum(ncol_fe)[:-1]]).astype(int)
-            for i, (v, p) in enumerate(zip(par0, self._spec.params)):
-                self._coeff_fe[i0[i]] = float(p.link(float(v)))
+            for p in self._fixpar:
+                f = formulas[p]
+                parsed = parse_formula(f if isinstance(f, str) else f.source)
+                if parsed.linear_terms or parsed.smooth_terms:
+                    raise ValueError(
+                        "formulas should be ~1 for fixed parameters")
+            self._formulas = {
+                p: (f if isinstance(f, str) else f.source)
+                for p, f in formulas.items()
+            }
+
+            if "ID" not in cdata:
+                warnings.warn(
+                    "No ID column found in 'data', assuming same ID for all "
+                    "observations",
+                    stacklevel=2,
+                )
+                data = dict(data) if isinstance(data, dict) else data.copy()
+                data["ID"] = np.zeros(cdata.n, int)
+                cdata = ColumnData(data)
+            if "time" not in cdata:
+                raise ValueError("'data' should have a time column")
+            self._data = cdata
+            self._id_levels = cdata.levels("ID")
+            lvl_index = {lv: i for i, lv in enumerate(self._id_levels)}
+            self._ids = np.array([lvl_index[v]
+                                  for v in cdata.raw("ID").tolist()])
+            self._times = cdata.numeric("time")
+            self._obs = np.column_stack([cdata.numeric(r) for r in responses])
+
+        with self._build_timer.stage("build.design"):
+            self._knots = dict(knots or {})
+            self._design = build_design(self._formulas, cdata,
+                                        knots=self._knots)
+            self._terms = {
+                "ncol_fe": list(self._design.ncol_fe),
+                "ncol_re": list(self._design.ncol_re),
+                "names_fe": list(self._design.names_fe),
+                "names_re_all": list(self._design.names_re),
+                "names_re": list(self._design.ncol_re_names),
+                "fe_col_terms": list(self._design.fe_col_terms),
+                "re_col_terms": list(self._design.re_col_terms),
+            }
+            ncol_fe = list(self._design.ncol_fe)
+            self._coeff_fe = np.zeros(sum(ncol_fe))
+            self._coeff_re = np.zeros(sum(self._design.ncol_re))
+            self._lambda = np.ones(self._design.n_lambda)
+            if par0 is not None:
+                if isinstance(par0, dict):
+                    missing = [p for p in param_names if p not in par0]
+                    extra = [k for k in par0 if k not in param_names]
+                    if missing or extra:
+                        raise ValueError(
+                            f"'par0' dict must have exactly one entry per "
+                            f"SDE parameter ({', '.join(param_names)}); "
+                            f"missing: {missing or 'none'}, unknown: "
+                            f"{extra or 'none'}"
+                        )
+                    par0 = [par0[p] for p in param_names]
+                if len(par0) != len(param_names):
+                    raise ValueError(
+                        f"'par0' should be of length {len(param_names)} with "
+                        f"one entry for each SDE parameter "
+                        f"({', '.join(param_names)})"
+                    )
+                i0 = np.concatenate([[0], np.cumsum(ncol_fe)[:-1]]).astype(
+                    int)
+                for i, (v, p) in enumerate(zip(par0, self._spec.params)):
+                    self._coeff_fe[i0[i]] = float(p.link(float(v)))
 
         # decay bookkeeping (R/sde.R:163-181)
         other_data = dict(other_data or {})
@@ -393,7 +403,11 @@ class SDE:
         initialized torch.distributed group of several processes "auto"
         is a ("dcn", mesh_axis) mesh over them (each runs the same fit on
         the whole data and evaluates its own shards). The reference has
-        no counterpart (it is single-threaded, nllk_sde.hpp:77-84)."""
+        no counterpart (it is single-threaded, nllk_sde.hpp:77-84).
+
+        The bundle keeps the build's stages (`SDE(...)`'s and
+        `build_objective`'s), which every fit of it reports in
+        `FitResult.timings`."""
         from smoothsde_tpu_torch.infer.objective import build_objective
 
         if isinstance(mesh, str):
@@ -412,12 +426,14 @@ class SDE:
             ),
             "log_decay": np.log(self._rho),
         }
+        timer = StageTimer()
+        timer.merge(self._build_timer)
         self._bundle = build_objective(
             self._spec, self._design, self._obs, self._times, self._ids,
             other_data=self._other_data, fixpar=self._fixpar,
             init=init, map_fix=map, reml=reml, kalman_impl=kalman_impl,
             mesh=mesh, mesh_axis=mesh_axis,
-            dtype=self._dtype, device=self._device,
+            dtype=self._dtype, device=self._device, timer=timer,
         )
         self._kalman_impl = kalman_impl
         self._reml = reml

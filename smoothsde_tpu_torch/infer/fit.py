@@ -15,8 +15,12 @@ strategy; `sdreport_mode`: a host loop, or the points stacked on the
 device and read back in one copy, `fd_hessian`) and its inverse as
 `cov_fixed`. `FitResult.timings` holds the JAX package's per-stage
 summary (utils/profiling.StageTimer: marginal_nllk_grad,
-outer_hessian_fd, joint_precision, device_lbfgs, device_polish), and
-`profile_dir` receives a torch.profiler trace of the optimization. With
+outer_hessian_fd, joint_precision, device_lbfgs, device_polish) and the
+port's own stages (`PORT_STAGES`): the build of the bundle, each
+evaluation's enqueue, every read of the device ("host_read": its calls
+are the fit's host reads) and each CUDA graph's capture (the device
+optimizer's step, the Laplace layer's graphs); and `profile_dir` receives a torch.profiler trace of the optimization, the
+stages in it as "stage.<name>" ranges. With
 inner coefficients the
 joint precision over (outer, inner) is assembled as
 
@@ -34,6 +38,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import time
 from typing import List, Optional
 
@@ -41,11 +46,16 @@ import numpy as np
 import torch
 
 from smoothsde_tpu_torch.infer.laplace import make_laplace
-from smoothsde_tpu_torch.utils.misc import prec_to_cov
-from smoothsde_tpu_torch.utils.profiling import StageTimer, trace
+from smoothsde_tpu_torch.utils.misc import prec_to_cov, to_device
+from smoothsde_tpu_torch.utils.profiling import NO_TIMER, StageTimer, trace
 
 OPTIMIZERS = ("scipy", "device", "auto")
 SDREPORT_MODES = ("auto", "host", "device")
+# the stages the port records beside the JAX package's: the build
+# (SDE(...) and setup()), an evaluation's work up to its first read of
+# the device, each read of the device, and a CUDA graph's capture
+PORT_STAGES = ("build.columns", "build.design", "build.params",
+               "build.rows", "eval.enqueue", "host_read", "graph.capture")
 
 
 @dataclasses.dataclass
@@ -63,7 +73,9 @@ class FitResult:
     cov_fixed: Optional[np.ndarray] = None
     joint_precision: Optional[np.ndarray] = None
     joint_names: Optional[List[str]] = None
-    # per stage: {calls, first_s, steady_s, total_s} (StageTimer)
+    # per stage: {calls, first_s, steady_s, total_s} (StageTimer); the
+    # "build.*" entries are the bundle's one-time build, repeated in
+    # every fit of the bundle (a sum over fits counts it once a fit)
     timings: Optional[dict] = None
     # which criterion earned convergence == 0: 'optimizer', 'gtol',
     # 'slope_probe', 'descent_probe', or 'none'
@@ -76,7 +88,7 @@ class FitResult:
     device_graph: Optional[str] = None
 
 
-def make_val_grad(bundle):
+def make_val_grad(bundle, timer=NO_TIMER):
     """fn(x: np.ndarray, b0=None) -> (value, gradient, bhat) of the
     Laplace marginal at the outer vector x, from the inner warm start b0
     (the inner initial values when None), evaluated on the bundle's
@@ -84,7 +96,12 @@ def make_val_grad(bundle):
     JAX package's f32 path does). Without inner coefficients the value
     is the joint nllk and bhat is empty. The Laplace marginal is made
     once per bundle (`bundle.marginal`), so every evaluation of the
-    bundle replays the same captured CUDA graphs."""
+    bundle replays the same captured CUDA graphs. Each evaluation records
+    in `timer` (a StageTimer) "eval.enqueue", the upload of x, the
+    forward and the gradient, and a "host_read" around each read of the
+    device: the value, the gradient and, with inner coefficients, bhat
+    (the inner Newton's own reads are "host_read" stages inside the
+    enqueue)."""
     packer = bundle.packer
     if bundle.marginal is None:  # one per bundle: its CUDA graphs too
         bundle.marginal = make_laplace(
@@ -96,20 +113,25 @@ def make_val_grad(bundle):
     b_init = packer.inner_init()
 
     def val_grad(x, b0=None):
-        xt = torch.tensor(np.asarray(x, np.float64), dtype=bundle.dtype,
-                          device=bundle.device, requires_grad=True)
-        if not packer.n_inner:  # the joint nllk: no inner tensors at all
-            v = bundle.joint_nllk(packer.unpack(xt))
-            b = np.zeros(0)
-        else:
-            bt = torch.tensor(np.asarray(b_init if b0 is None else b0,
-                                         np.float64),
-                              dtype=bundle.dtype, device=bundle.device)
-            v, b = marginal(xt, bt)
+        with timer.stage("eval.enqueue"):
+            xt = to_device(x, bundle.dtype, bundle.device).requires_grad_()
+            if not packer.n_inner:  # the joint nllk: no inner tensors
+                v = bundle.joint_nllk(packer.unpack(xt))
+                b = None
+            else:
+                bt = to_device(b_init if b0 is None else b0, bundle.dtype,
+                               bundle.device)
+                v, b = marginal(xt, bt, timer)
+            (g,) = torch.autograd.grad(v, xt)
+        with timer.stage("host_read"):
+            v = float(v.detach())
+        with timer.stage("host_read"):
+            g = g.detach().to("cpu", torch.float64).numpy()
+        if b is None:
+            return v, g, np.zeros(0)
+        with timer.stage("host_read"):
             b = b.to("cpu", torch.float64).numpy()
-        (g,) = torch.autograd.grad(v, xt)
-        return (float(v.detach()),
-                g.detach().to("cpu", torch.float64).numpy(), b)
+        return v, g, b
 
     return val_grad
 
@@ -220,7 +242,10 @@ def fit_model(
     why), and across processes every rank reads the same flag and the
     same copy of the result, so the ranks stop together. profile_dir: a
     torch.profiler trace of the optimization is written there
-    (utils/profiling.trace).
+    (utils/profiling.trace). The result's `timings` carry the bundle's
+    build stages ("build.*", calls 1) beside the fit's own: the one-time
+    build of `SDE(...)` and `setup()`, repeated in every fit of the
+    bundle, not work this fit ran.
     sdreport_mode: how the outer Hessian's FD gradients run, "host" (one
     evaluation and host read each), "device" (`fd_hessian`: stacked on
     the device, one copy back) or "auto" ("device" on a CUDA model,
@@ -234,8 +259,11 @@ def fit_model(
         raise ValueError(f"sdreport_mode must be one of {SDREPORT_MODES}")
     if optimizer == "auto":
         optimizer = resolve_optimizer(bundle)
+    timer = StageTimer()
+    if bundle.build_timer is not None:
+        timer.merge(bundle.build_timer)
     packer = bundle.packer
-    raw_val_grad = make_val_grad(bundle)
+    raw_val_grad = make_val_grad(bundle, timer)
     n_evals = 0
 
     def val_grad(x, b0=None):
@@ -245,7 +273,6 @@ def fit_model(
 
     x0 = packer.outer_init()
     b_warm = packer.inner_init()
-    timer = StageTimer()
     if len(x0) == 0:
         # everything is integrated out (e.g. REML with no free variance
         # parameters): a single marginal evaluation is the fit
@@ -391,7 +418,8 @@ def _fit_device(bundle, val_grad, maxiter, compute_sdreport, fd_step,
     from smoothsde_tpu_torch.parallel.collectives import first_rank
 
     packer = bundle.packer
-    marginal = bundle.marginal  # made by make_val_grad
+    # made by make_val_grad; its reads of the device are this fit's
+    marginal = functools.partial(bundle.marginal, timer=timer)
     procs = bundle.mesh.processes if _multi_process(bundle) else None
     if procs is not None:
         val_grad = _agreed(val_grad, procs)
@@ -400,14 +428,14 @@ def _fit_device(bundle, val_grad, maxiter, compute_sdreport, fd_step,
     n_out = packer.n_outer
 
     def tensor(a):
-        return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
-                               device=device)
+        return to_device(a, dtype, device)
 
     t0 = time.time()
     with timer.stage("device_lbfgs"), trace(profile_dir):
         r = device_lbfgs(marginal, tensor(packer.outer_init()),
                          tensor(packer.inner_init()), maxiter=maxiter,
-                         eager=_eager_reason(bundle), processes=procs)
+                         eager=_eager_reason(bundle), processes=procs,
+                         timer=timer)
 
         def value_at(xp):
             return marginal(xp, r.b)[0].detach()
@@ -436,7 +464,9 @@ def _fit_device(bundle, val_grad, maxiter, compute_sdreport, fd_step,
         head = torch.stack([r.f, r.n_iter.to(dtype), r.n_evals.to(dtype),
                             r.converged.to(dtype), slope_ok.to(dtype),
                             descent_ok.to(dtype)])
-        vals = torch.cat([head, r.x, r.b, H_fd]).to("cpu", torch.float64)
+        with timer.stage("host_read"):
+            vals = torch.cat([head, r.x, r.b, H_fd]).to("cpu",
+                                                        torch.float64)
         if procs is not None:
             vals = first_rank(vals, procs)
         vals = vals.numpy()
@@ -513,7 +543,7 @@ def _sdreport(out, bundle, val_grad, fd_step, timer, mode="auto",
     else:
         if H is None or not np.isfinite(H).all():
             with timer.stage("outer_hessian_fd"):
-                H = (_fd_device(bundle, x_hat, b_hat, fd_step)
+                H = (_fd_device(bundle, x_hat, b_hat, fd_step, timer)
                      if mode == "device"
                      else _fd_host(val_grad, x_hat, b_hat, fd_step))
         out.H_marg = 0.5 * (H + H.T)
@@ -526,11 +556,12 @@ def _sdreport(out, bundle, val_grad, fd_step, timer, mode="auto",
     def joint_vec(z):
         return bundle.joint_nllk_ad_flat(packer.unpack(z[:n_out], z[n_out:]))
 
-    z_hat = torch.tensor(np.concatenate([x_hat, b_hat]), dtype=bundle.dtype,
-                         device=bundle.device)
+    z_hat = to_device(np.concatenate([x_hat, b_hat]), bundle.dtype,
+                      bundle.device)
     with timer.stage("joint_precision"):
-        J = torch.func.hessian(joint_vec)(z_hat).to(
-            "cpu", torch.float64).numpy()
+        J = torch.func.hessian(joint_vec)(z_hat)
+        with timer.stage("host_read"):
+            J = J.to("cpu", torch.float64).numpy()
     J_tb = J[:n_out, n_out:]
     J_bb = J[n_out:, n_out:]
     top_left = out.H_marg + J_tb @ np.linalg.solve(J_bb, J_tb.T)
@@ -560,13 +591,15 @@ def _fd_host(val_grad, x_hat, b_hat, fd_step):
     return H
 
 
-def _fd_device(bundle, x_hat, b_hat, fd_step):
+def _fd_device(bundle, x_hat, b_hat, fd_step, timer):
     """The FD outer Hessian by `fd_hessian` on the model's device, the
-    inner solves from bhat, in one copy back."""
+    inner solves from bhat, in one copy back (a "host_read" of
+    `timer`)."""
     def tensor(a):
-        return torch.as_tensor(np.asarray(a, np.float64),
-                               dtype=bundle.dtype, device=bundle.device)
+        return to_device(a, bundle.dtype, bundle.device)
 
-    grad_at = _marginal_grad(bundle.marginal, tensor(b_hat))
-    return fd_hessian(grad_at, tensor(x_hat), fd_step).to(
-        "cpu", torch.float64).numpy()
+    grad_at = _marginal_grad(
+        functools.partial(bundle.marginal, timer=timer), tensor(b_hat))
+    H = fd_hessian(grad_at, tensor(x_hat), fd_step)
+    with timer.stage("host_read"):
+        return H.to("cpu", torch.float64).numpy()

@@ -51,6 +51,9 @@ from typing import Callable, Optional
 import torch
 from torch.func import grad, grad_and_value, jacfwd, vmap
 
+from smoothsde_tpu_torch.utils.misc import to_device
+from smoothsde_tpu_torch.utils.profiling import NO_TIMER
+
 # The inner Newton's limits (the JAX package's LaplaceConfig defaults):
 # iterations, the f64 gradient tolerance, the relative ridge on H.
 _MAX_ITER = 100
@@ -71,6 +74,15 @@ def _solve(A, B):
     return torch.where(info == 0, X, math.nan)
 
 
+def _equal(a, b, timer) -> bool:
+    """torch.equal, a "host_read" stage of `timer` where it reads the
+    device (an empty tensor reads nothing)."""
+    if not a.numel():
+        return torch.equal(a, b)
+    with timer.stage("host_read"):
+        return torch.equal(a, b)
+
+
 class Graphed:
     """fn(*tensors) -> tensor or tuple of tensors, replayed from a CUDA
     graph captured at the first call with each (shape, dtype, device) of
@@ -80,7 +92,10 @@ class Graphed:
     signature eager (`status` records which); any other error, an
     out-of-memory included, propagates. Outputs are fresh tensors.
     `eager`: a reason to run fn as it is, never captured (fn exchanges
-    data with other processes, which a replay cannot)."""
+    data with other processes, which a replay cannot). A call's `timer`
+    (a StageTimer) records each capture (the warm-up run, the capture,
+    the replay check) as a "graph.capture" stage, and the replay check's
+    reads as "host_read" stages."""
 
     def __init__(self, fn, eager: Optional[str] = None):
         self.fn = fn
@@ -88,12 +103,13 @@ class Graphed:
         self.status = {} if eager is None else {"all": f"eager ({eager})"}
         self.eager = eager
 
-    def __call__(self, *args):
+    def __call__(self, *args, timer=NO_TIMER):
         if not args[0].is_cuda or self.eager is not None:
             return self.fn(*args)
         key = tuple((a.shape, a.dtype, a.device) for a in args)
         if key not in self.entries:
-            self.entries[key] = self._capture(args)
+            with timer.stage("graph.capture"):
+                self.entries[key] = self._capture(args, timer)
         entry = self.entries[key]
         if entry is None:
             return self.fn(*args)
@@ -104,7 +120,7 @@ class Graphed:
         return tuple(o.clone() for o in static_out) if isinstance(
             static_out, tuple) else static_out.clone()
 
-    def _capture(self, args):
+    def _capture(self, args, timer):
         static_in = [a.detach().clone() for a in args]
         side = torch.cuda.Stream(args[0].device)
         side.wait_stream(torch.cuda.current_stream(args[0].device))
@@ -123,7 +139,7 @@ class Graphed:
         graph.replay()
         outs = static_out if isinstance(static_out, tuple) else (static_out,)
         wants = want if isinstance(want, tuple) else (want,)
-        same = all(torch.equal(o, w) for o, w in zip(outs, wants))
+        same = all(_equal(o, w, timer) for o, w in zip(outs, wants))
         self.status[str(args[0].dtype)] = "graph" if same else \
             "eager (replay differs)"
         return (graph, static_in, static_out) if same else None
@@ -133,9 +149,11 @@ def make_laplace(joint_nllk: Callable, packer,
                  joint_nllk_ad: Optional[Callable] = None,
                  hess_plan: Optional[dict] = None,
                  eager: Optional[str] = None):
-    """Build marginal_nllk(outer, b0) -> (value, bhat) for a packed
-    objective: differentiable in `outer` (a tensor); b0 is the inner warm
-    start (treated as a constant). Without inner coefficients the
+    """Build marginal_nllk(outer, b0, timer=NO_TIMER) -> (value, bhat)
+    for a packed objective: differentiable in `outer` (a tensor); b0 is
+    the inner warm start (treated as a constant); `timer` (a StageTimer)
+    records the inner Newton's reads of the device as "host_read"
+    stages. Without inner coefficients the
     marginal is the joint nllk and bhat is empty. `joint_nllk_ad`: the
     forward-mode-capable twin of `joint_nllk` (the same function), which
     carries every second-order quantity; `hess_plan`: a
@@ -145,7 +163,7 @@ def make_laplace(joint_nllk: Callable, packer,
     captured)."""
     n_inner = packer.n_inner
     if n_inner == 0:
-        def marginal_trivial(outer, b0):
+        def marginal_trivial(outer, b0, timer=NO_TIMER):
             return joint_nllk(packer.unpack(outer)), outer.new_zeros(0)
 
         marginal_trivial.graphs = {}
@@ -194,7 +212,7 @@ def make_laplace(joint_nllk: Callable, packer,
         "tail": Graphed(tail, eager),
     }
 
-    def newton(outer, b0):
+    def newton(outer, b0, timer):
         b = b0.detach()
         f64 = b.dtype == torch.float64
         # Absolute gradient tolerance, plus a scale-aware Newton
@@ -204,29 +222,37 @@ def make_laplace(joint_nllk: Callable, packer,
         # f32 a fixed small gradient tolerance is often unreachable).
         tol = _TOL if f64 else 1e-4
         eps_dec = 1e-12 if f64 else 1e-6
-        alphas = torch.tensor(_ALPHAS, dtype=b.dtype, device=b.device)
+        alphas = to_device(_ALPHAS, b.dtype, b.device)
         eye = torch.eye(n_inner, dtype=b.dtype, device=b.device)
-        f_cur, g = graphs["value_grad"](outer, b)
-        dec_tol = eps_dec * (1.0 + abs(float(f_cur)))
+        f_cur, g = graphs["value_grad"](outer, b, timer=timer)
+        with timer.stage("host_read"):
+            dec_tol = eps_dec * (1.0 + abs(float(f_cur)))
         progress = math.inf
         for _ in range(_MAX_ITER):
-            if not (float(g.abs().max()) > tol and progress > dec_tol):
+            with timer.stage("host_read"):
+                g_max = float(g.abs().max())
+            if not (g_max > tol and progress > dec_tol):
                 break
-            H = graphs["hess"](outer, b)
+            H = graphs["hess"](outer, b, timer=timer)
             scale = H.diagonal().abs().mean() + 1.0
             delta = _solve(H + _RIDGE * scale * eye, g)
             cand = b[None, :] - alphas[:, None] * delta[None, :]
-            fs = graphs["batch"](outer, cand)
+            fs = graphs["batch"](outer, cand, timer=timer)
             fs = torch.where(torch.isfinite(fs), fs, math.inf)
             k = torch.argmin(fs)
-            b = cand[k]
-            f_new = torch.minimum(fs[k], f_cur)
+            # indexing by a device scalar reads it
+            with timer.stage("host_read"):
+                b = cand[k]
+            with timer.stage("host_read"):
+                f_k = fs[k]
+            f_new = torch.minimum(f_k, f_cur)
             # Actual decrease achieved this iteration: when the line
             # search stalls (alpha = 0 wins, f32 noise floor reached),
             # stop instead of spinning to max_iter.
-            progress = float(f_cur - f_new)
+            with timer.stage("host_read"):
+                progress = float(f_cur - f_new)
             f_cur = f_new
-            _, g = graphs["value_grad"](outer, b)
+            _, g = graphs["value_grad"](outer, b, timer=timer)
         return b
 
     log_2pi = math.log(2.0 * math.pi)
@@ -236,14 +262,14 @@ def make_laplace(joint_nllk: Callable, packer,
         gradient (module docstring) times the value's cotangent."""
 
         @staticmethod
-        def forward(ctx, outer, b0):
+        def forward(ctx, outer, b0, timer):
             outer = outer.detach()
-            b = newton(outer, b0)
-            H = graphs["hess"](outer, b)
+            b = newton(outer, b0, timer)
+            H = graphs["hess"](outer, b, timer=timer)
             _, logdet = torch.linalg.slogdet(H)
             W = _solve(H, torch.eye(n_inner, dtype=H.dtype,
                                     device=H.device))
-            cross, g_o, g_b = graphs["tail"](outer, b, W)
+            cross, g_o, g_b = graphs["tail"](outer, b, W, timer=timer)
             with torch.enable_grad():
                 o = outer.clone().requires_grad_(True)
                 bb = b.clone().requires_grad_(True)
@@ -258,10 +284,10 @@ def make_laplace(joint_nllk: Callable, packer,
         @staticmethod
         def backward(ctx, gv, _gb):
             (gradient,) = ctx.saved_tensors
-            return gv * gradient, None
+            return gv * gradient, None, None
 
-    def marginal_nllk(outer, b0):
-        return _Marginal.apply(outer, b0)
+    def marginal_nllk(outer, b0, timer=NO_TIMER):
+        return _Marginal.apply(outer, b0, timer)
 
     marginal_nllk.graphs = graphs
     return marginal_nllk

@@ -40,6 +40,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from smoothsde_tpu_torch.utils.profiling import NO_TIMER
+
 _MAX_LS = 12  # backtracking trials per iteration (alpha >= ~2e-4)
 _C1 = 1e-4  # Armijo constant
 _BIG = 1e10  # the value a non-finite evaluation is replaced by
@@ -88,8 +90,8 @@ def _val_grad(marginal):
 
 def device_lbfgs(marginal, x0, b0, m: int = 10, maxiter: int = 200,
                  gtol_abs: float = 1e-3, gtol_rel: float = None,
-                 eager: Optional[str] = None, processes=None
-                 ) -> LBFGSResult:
+                 eager: Optional[str] = None, processes=None,
+                 timer=NO_TIMER) -> LBFGSResult:
     """Minimize marginal(x, b_warm) -> (value, bhat) from x0 with the
     inner warm start b0 (tensors on the model's device, one dtype).
 
@@ -105,6 +107,10 @@ def device_lbfgs(marginal, x0, b0, m: int = 10, maxiter: int = 200,
     processes: the parallel.collectives.Processes of a ("dcn", axis)
       mesh whose ranks all run this loop: the flag read after each step
       (and at the start) is the OR over the ranks.
+
+    timer: a StageTimer that records each flag read as a "host_read"
+      stage and the step's capture (the warm-up step, the capture and the
+      replay check) as "graph.capture".
     """
     x0 = x0.detach()
     dtype, device = x0.dtype, x0.device
@@ -210,8 +216,8 @@ def device_lbfgs(marginal, x0, b0, m: int = 10, maxiter: int = 200,
         }
         return tuple(new[k] for k in _FIELDS) + (search | more,)
 
-    def i64(v):
-        return torch.tensor(v, dtype=torch.int64, device=device)
+    def i64(v):  # a fill on the device: no host copy
+        return torch.full((), v, dtype=torch.int64, device=device)
 
     b0 = b0.detach().to(dtype=dtype, device=device)
     f0, g0, b0 = vg(x0, b0)
@@ -225,20 +231,25 @@ def device_lbfgs(marginal, x0, b0, m: int = 10, maxiter: int = 200,
              zero + 1.0, g0, b0)
 
     def read(flag):
-        """The host's one read of a flag, OR-ed over the processes."""
-        if processes is None:
-            return bool(flag)
+        """The host's one read of a flag (a "host_read" stage), OR-ed over
+        the processes."""
+        with timer.stage("host_read"):
+            if processes is None:
+                return bool(flag)
+            flag = flag.to("cpu", torch.int64).reshape(1)
         from smoothsde_tpu_torch.parallel.collectives import sum_plain
 
-        return bool(sum_plain(flag.to("cpu", torch.int64).reshape(1),
-                              processes) > 0)
+        return bool(sum_plain(flag, processes) > 0)
 
     capture = x0.is_cuda and b0.numel() == 0 and eager is None
     run = step
     if capture:
         from smoothsde_tpu_torch.infer.laplace import Graphed
 
-        run = Graphed(step)
+        graphed = Graphed(step)
+
+        def run(*state):
+            return graphed(*state, timer=timer)
     more = read(go_on(i64(0), f0, g0, i64(0)))  # the start's one read
     steps = 0
     while more:
@@ -248,7 +259,7 @@ def device_lbfgs(marginal, x0, b0, m: int = 10, maxiter: int = 200,
     st = dict(zip(_FIELDS, state))
     graph = "eager" if eager is None else f"eager ({eager})"
     if capture:
-        graph = next(iter(run.status.values()), "eager")
+        graph = next(iter(graphed.status.values()), "eager")
     return LBFGSResult(
         x=st["x"], f=st["f"], g=st["g"], b=st["b"], n_iter=st["k"],
         n_evals=st["evals"], converged=st["g"].abs().max() <= gtol(st["f"]),

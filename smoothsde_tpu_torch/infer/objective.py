@@ -112,6 +112,7 @@ from smoothsde_tpu_torch.ops.kalman_sqrt import (
 )
 from smoothsde_tpu_torch.ops.penalty import make_penalty
 from smoothsde_tpu_torch.parallel.collectives import process_sum, replicate
+from smoothsde_tpu_torch.utils.profiling import StageTimer
 
 # setup(kalman_impl=...) choices (the JAX package's); "soa" is the JAX
 # package's name for the route "auto" takes here
@@ -204,6 +205,9 @@ class ObjectiveBundle:
     loglik: Optional[Callable] = None
     # the mesh of a sharded likelihood (parallel/batching.Mesh), or None
     mesh: Optional[object] = None
+    # the build's stages (build.columns .. build.rows), which fit_model
+    # adds to every fit's timings
+    build_timer: Optional[StageTimer] = None
 
     @property
     def uses_mesh(self) -> bool:
@@ -372,7 +376,14 @@ def build_objective(
     *,
     dtype: torch.dtype = torch.float32,
     device="cuda",
+    timer: Optional[StageTimer] = None,
 ) -> ObjectiveBundle:
+    """The bundle of the model's objective on `device` in `dtype`. `timer`
+    (a fresh StageTimer where None) records the build's stages
+    "build.params" (the parameter blocks, the design's uploads, the
+    penalty and the inner Hessian plan) and "build.rows" (the rows'
+    likelihood: its per-step device data, the filters' tensors and the
+    track plan), and the bundle keeps it."""
     other_data = dict(other_data or {})
     fixpar = list(fixpar or [])
     init = dict(init or {})
@@ -404,123 +415,159 @@ def build_objective(
             device=device, dtype=dtype
         )
 
-    # Constant-column FE blocks (intercept-only formulas) collapse to a
-    # broadcast of a length-p dot product instead of an (n, p) matvec.
-    fe_const_rows = [
-        dev(X[0]) if X.shape[0] > 0 and np.all(np.ptp(X, axis=0) == 0)
-        else None
-        for X in design.fe_blocks()
-    ]
-    fe_blocks = [
-        None if fe_const_rows[j] is not None else dev(X)
-        for j, X in enumerate(design.fe_blocks())
-    ]
-    re_blocks = [dev(X) for X in design.re_blocks()]
-    ncol_re_per_param = [X.shape[1] for X in design.re_blocks()]
-    fe_off = np.concatenate([[0], np.cumsum(design.ncol_fe)]).astype(int)
-    re_off = np.concatenate([[0], np.cumsum(ncol_re_per_param)]).astype(int)
-    p_fe = int(fe_off[-1])
-    p_re = int(re_off[-1])
-    n_smooth = design.n_lambda
-    has_re = p_re > 0
+    if timer is None:
+        timer = StageTimer()
+    with timer.stage("build.params"):
+        # Constant-column FE blocks (intercept-only formulas) collapse to
+        # a broadcast of a length-p dot product instead of an (n, p)
+        # matvec.
+        fe_const_rows = [
+            dev(X[0]) if X.shape[0] > 0 and np.all(np.ptp(X, axis=0) == 0)
+            else None
+            for X in design.fe_blocks()
+        ]
+        fe_blocks = [
+            None if fe_const_rows[j] is not None else dev(X)
+            for j, X in enumerate(design.fe_blocks())
+        ]
+        re_blocks = [dev(X) for X in design.re_blocks()]
+        ncol_re_per_param = [X.shape[1] for X in design.re_blocks()]
+        fe_off = np.concatenate([[0], np.cumsum(design.ncol_fe)]).astype(int)
+        re_off = np.concatenate([[0], np.cumsum(ncol_re_per_param)]
+                                ).astype(int)
+        p_fe = int(fe_off[-1])
+        p_re = int(re_off[-1])
+        n_smooth = design.n_lambda
+        has_re = p_re > 0
 
-    # ---- decay-modulated splines (closed-form models only,
-    #      R/sde.R:634-653, nllk_sde.hpp:47-58) ----
-    decay_enabled = closed_form and other_data.get("t_decay") is not None
-    decay_cols: Dict[int, List[tuple]] = {}  # param j -> [(col, rate idx)]
-    n_decay = 1
-    t_decay_blocks = None
-    if decay_enabled:
-        t_decay = np.asarray(other_data["t_decay"], float)
-        if t_decay.size != n * n_par:
-            raise ValueError(
-                "'t_decay' should have length (number of parameters) x "
-                "(number of data)"
+        # ---- decay-modulated splines (closed-form models only,
+        #      R/sde.R:634-653, nllk_sde.hpp:47-58) ----
+        decay_enabled = closed_form and \
+            other_data.get("t_decay") is not None
+        # param j -> [(col, rate idx)]
+        decay_cols: Dict[int, List[tuple]] = {}
+        n_decay = 1
+        t_decay_blocks = None
+        if decay_enabled:
+            t_decay = np.asarray(other_data["t_decay"], float)
+            if t_decay.size != n * n_par:
+                raise ValueError(
+                    "'t_decay' should have length (number of parameters) x "
+                    "(number of data)"
+                )
+            col_decay = np.atleast_1d(
+                np.asarray(other_data["col_decay"], int))
+            ind_decay = np.atleast_1d(
+                np.asarray(other_data["ind_decay"], int))
+            if len(col_decay) != len(ind_decay):
+                raise ValueError(
+                    "'col_decay' and 'ind_decay' lengths differ")
+            n_decay = int(len(np.unique(ind_decay)))
+            t_decay_blocks = dev(t_decay.reshape(n_par, n))
+            for c, ind in zip(col_decay, ind_decay):
+                c0 = int(c) - 1  # 1-based as in the reference
+                j = int(np.searchsorted(re_off, c0, side="right") - 1)
+                decay_cols.setdefault(j, []).append(
+                    (c0 - int(re_off[j]), int(ind) - 1))
+
+        # ---- parameter blocks (same names and order as the JAX
+        #      package) ----
+        def _init(name, size, default=0.0):
+            v = np.asarray(init.get(name, np.full(size, default)), float)
+            v = v.reshape(-1)
+            if v.size != size:
+                raise ValueError(f"init for {name!r} has wrong size")
+            return v
+
+        blocks: List[ParamBlock] = []
+        if eseal:
+            # initial values of R/sde.R:606-609
+            for name, default in (("log_tau", 0.0), ("a1", -0.578),
+                                  ("log_a2", float(np.log(1.214)))):
+                fixed = np.atleast_1d(
+                    np.asarray(map_fix.get(name, [False]), bool))
+                blocks.append(
+                    ParamBlock(name, _init(name, 1, default), fixed))
+        elif not closed_form:
+            # sigma_obs is fixed when the user gives H (objective.py:267)
+            fixed_sobs = np.array([H_array is not None])
+            if "log_sigma_obs" in map_fix:
+                fixed_sobs = np.atleast_1d(
+                    np.asarray(map_fix["log_sigma_obs"], bool))
+            # Data-driven default: sigma_obs ~ a fraction of the median
+            # step length, which keeps BFGS's first line search off the
+            # tau -> inf plateau when the true noise is far below 1
+            # (objective.py:270-292 of the JAX package).
+            step_med = float(np.nanmedian(
+                np.abs(np.diff(np.asarray(obs, float), axis=0))))
+            default_ls = (
+                float(np.log(0.3 * step_med))
+                if np.isfinite(step_med) and step_med > 0
+                else 0.0
             )
-        col_decay = np.atleast_1d(np.asarray(other_data["col_decay"], int))
-        ind_decay = np.atleast_1d(np.asarray(other_data["ind_decay"], int))
-        if len(col_decay) != len(ind_decay):
-            raise ValueError("'col_decay' and 'ind_decay' lengths differ")
-        n_decay = int(len(np.unique(ind_decay)))
-        t_decay_blocks = dev(t_decay.reshape(n_par, n))
-        for c, ind in zip(col_decay, ind_decay):
-            c0 = int(c) - 1  # 1-based as in the reference
-            j = int(np.searchsorted(re_off, c0, side="right") - 1)
-            decay_cols.setdefault(j, []).append(
-                (c0 - int(re_off[j]), int(ind) - 1))
+            blocks.append(ParamBlock(
+                "log_sigma_obs", _init("log_sigma_obs", 1, default_ls),
+                fixed_sobs))
 
-    # ---- parameter blocks (same names and order as the JAX package) ----
-    def _init(name, size, default=0.0):
-        v = np.asarray(init.get(name, np.full(size, default)), float)
-        v = v.reshape(-1)
-        if v.size != size:
-            raise ValueError(f"init for {name!r} has wrong size")
-        return v
+        # coeff_fe, with fixpar columns pinned (R/sde.R:621-632)
+        cfe_fixed = np.zeros(p_fe, bool)
+        for j, pname in enumerate(param_names):
+            if pname in fixpar:
+                cfe_fixed[fe_off[j] : fe_off[j + 1]] = True
+        if "coeff_fe" in map_fix:
+            cfe_fixed = cfe_fixed | np.asarray(map_fix["coeff_fe"], bool)
+        blocks.append(
+            ParamBlock("coeff_fe", _init("coeff_fe", p_fe), cfe_fixed))
 
-    blocks: List[ParamBlock] = []
-    if eseal:
-        # initial values of R/sde.R:606-609
-        for name, default in (("log_tau", 0.0), ("a1", -0.578),
-                              ("log_a2", float(np.log(1.214)))):
-            fixed = np.atleast_1d(np.asarray(map_fix.get(name, [False]),
-                                             bool))
-            blocks.append(ParamBlock(name, _init(name, 1, default), fixed))
-    elif not closed_form:
-        # sigma_obs is fixed when the user gives H (objective.py:267)
-        fixed_sobs = np.array([H_array is not None])
-        if "log_sigma_obs" in map_fix:
-            fixed_sobs = np.atleast_1d(
-                np.asarray(map_fix["log_sigma_obs"], bool))
-        # Data-driven default: sigma_obs ~ a fraction of the median step
-        # length, which keeps BFGS's first line search off the tau -> inf
-        # plateau when the true noise is far below 1 (objective.py:270-292
-        # of the JAX package).
-        step_med = float(
-            np.nanmedian(np.abs(np.diff(np.asarray(obs, float), axis=0)))
-        )
-        default_ls = (
-            float(np.log(0.3 * step_med))
-            if np.isfinite(step_med) and step_med > 0
-            else 0.0
-        )
+        # log_lambda: one per penalty matrix; fixed when there are no
+        # smooths
+        ll_fixed = np.full(max(n_smooth, 1), not has_re)
+        if "log_lambda" in map_fix:
+            ll_fixed = ll_fixed | np.asarray(map_fix["log_lambda"], bool)
         blocks.append(ParamBlock(
-            "log_sigma_obs", _init("log_sigma_obs", 1, default_ls),
-            fixed_sobs))
+            "log_lambda", _init("log_lambda", max(n_smooth, 1), 0.0),
+            ll_fixed))
 
-    # coeff_fe, with fixpar columns pinned (R/sde.R:621-632)
-    cfe_fixed = np.zeros(p_fe, bool)
-    for j, pname in enumerate(param_names):
-        if pname in fixpar:
-            cfe_fixed[fe_off[j] : fe_off[j + 1]] = True
-    if "coeff_fe" in map_fix:
-        cfe_fixed = cfe_fixed | np.asarray(map_fix["coeff_fe"], bool)
-    blocks.append(ParamBlock("coeff_fe", _init("coeff_fe", p_fe), cfe_fixed))
+        if decay_enabled:
+            blocks.append(ParamBlock(
+                "log_decay", _init("log_decay", n_decay, 0.0),
+                np.zeros(n_decay, bool)))
 
-    # log_lambda: one per penalty matrix; fixed when there are no smooths
-    ll_fixed = np.full(max(n_smooth, 1), not has_re)
-    if "log_lambda" in map_fix:
-        ll_fixed = ll_fixed | np.asarray(map_fix["log_lambda"], bool)
-    blocks.append(ParamBlock(
-        "log_lambda", _init("log_lambda", max(n_smooth, 1), 0.0), ll_fixed))
-
-    if decay_enabled:
+        cre_fixed = np.zeros(max(p_re, 1), bool) if has_re \
+            else np.ones(1, bool)
+        if "coeff_re" in map_fix and has_re:
+            cre_fixed = cre_fixed | np.asarray(map_fix["coeff_re"], bool)
         blocks.append(ParamBlock(
-            "log_decay", _init("log_decay", n_decay, 0.0),
-            np.zeros(n_decay, bool)))
+            "coeff_re", _init("coeff_re", max(p_re, 1)), cre_fixed))
 
-    cre_fixed = np.zeros(max(p_re, 1), bool) if has_re else np.ones(1, bool)
-    if "coeff_re" in map_fix and has_re:
-        cre_fixed = cre_fixed | np.asarray(map_fix["coeff_re"], bool)
-    blocks.append(
-        ParamBlock("coeff_re", _init("coeff_re", max(p_re, 1)), cre_fixed))
+        # REML: integrate the fixed-effect coefficients out alongside the
+        # smooth coefficients (TMB's documented REML construction,
+        # random=c("coeff_fe", "coeff_re"); the reference only exposes ML,
+        # R/sde.R:656-658).
+        packer = ParamPacker(
+            blocks, inner=("coeff_fe", "coeff_re") if reml else "coeff_re")
+        packer.place(dtype, device)
 
-    # REML: integrate the fixed-effect coefficients out alongside the
-    # smooth coefficients (TMB's documented REML construction,
-    # random=c("coeff_fe", "coeff_re"); the reference only exposes ML,
-    # R/sde.R:656-658).
-    packer = ParamPacker(
-        blocks, inner=("coeff_fe", "coeff_re") if reml else "coeff_re")
-    packer.place(dtype, device)
+        # ---- penalty ----
+        penalty = make_penalty(design.S_groups, normalize=closed_form,
+                               dtype=dtype, device=device)
+
+        # ---- compressed inner-Hessian plan (infer/coloring.py) ----
+        # Only when the inner vector is exactly the full coeff_re (ML, no
+        # pinned entries): the plan's columns must match the inner vector
+        # one to one. A pure optimization: plan_coloring returns None
+        # whenever exact reconstruction is not guaranteed.
+        hess_plan = None
+        if has_re and not reml and not np.asarray(cre_fixed).any() \
+                and p_re >= 16:
+            from smoothsde_tpu_torch.infer.coloring import plan_coloring
+
+            pg_off = np.concatenate([[0], np.cumsum(design.ncol_re)]
+                                    ).astype(int)
+            hess_plan = plan_coloring(design.re_blocks(), [
+                (np.arange(pg_off[k], pg_off[k + 1]), design.S_groups[k])
+                for k in range(len(design.ncol_re))
+            ])
 
     # ---- linear predictor ----
     def par_matrix(full):
@@ -549,8 +596,22 @@ def build_objective(
         return torch.stack(cols, dim=1)
 
     # ---- likelihood ----
-    lik = rows_likelihood(spec, obs, times, ids, other_data, H_array, P0,
-                          kalman_impl, dtype=dtype, device=device)
+    with timer.stage("build.rows"):
+        lik = rows_likelihood(spec, obs, times, ids, other_data, H_array,
+                              P0, kalman_impl, dtype=dtype, device=device)
+        value, value_ad = lik.value, lik.ad
+        if mesh is not None:
+            from smoothsde_tpu_torch.parallel import dist
+
+            if mesh_axis == "time":
+                sharded = dist.build_time_sharded_loglik(
+                    spec, obs, times, ids, mesh, mesh_axis, other_data,
+                    H_array, P0, kalman_impl, dtype=dtype, device=device)
+            else:
+                sharded = dist.build_sharded_loglik(
+                    spec, obs, times, ids, mesh, mesh_axis, other_data,
+                    kalman_impl, H_array, P0, dtype=dtype)
+            value, value_ad = sharded.loglik, sharded.loglik_ad
     priors = eseal_priors(other_data.get("priors", "schick2013"), n) \
         if eseal else {}
 
@@ -566,20 +627,6 @@ def build_objective(
             tau = torch.exp(full["log_tau"])
             llk = llk + _dinvgamma_log(tau**2, *priors["tau2"]).sum()
         return llk
-
-    value, value_ad = lik.value, lik.ad
-    if mesh is not None:
-        from smoothsde_tpu_torch.parallel import dist
-
-        if mesh_axis == "time":
-            sharded = dist.build_time_sharded_loglik(
-                spec, obs, times, ids, mesh, mesh_axis, other_data, H_array,
-                P0, kalman_impl, dtype=dtype, device=device)
-        else:
-            sharded = dist.build_sharded_loglik(
-                spec, obs, times, ids, mesh, mesh_axis, other_data,
-                kalman_impl, H_array, P0, dtype=dtype)
-        value, value_ad = sharded.loglik, sharded.loglik_ad
 
     procs = None if mesh is None else mesh.processes
 
@@ -624,10 +671,6 @@ def build_objective(
             return kalman_innovations(lik.full_steps(full, par_matrix(full)),
                                       impl=states_impl)
 
-    # ---- penalty ----
-    penalty = make_penalty(design.S_groups, normalize=closed_form,
-                           dtype=dtype, device=device)
-
     def _joint(loglik_fn):
         def joint(full):
             val = -loglik_fn(full)
@@ -649,21 +692,6 @@ def build_objective(
         # through the twin (callers take its Hessian)
         return -loglik_ad(full)
 
-    # ---- compressed inner-Hessian plan (infer/coloring.py) ----
-    # Only when the inner vector is exactly the full coeff_re (ML, no
-    # pinned entries): the plan's columns must match the inner vector
-    # one to one. A pure optimization: plan_coloring returns None
-    # whenever exact reconstruction is not guaranteed.
-    hess_plan = None
-    if has_re and not reml and not np.asarray(cre_fixed).any() \
-            and p_re >= 16:
-        from smoothsde_tpu_torch.infer.coloring import plan_coloring
-
-        pg_off = np.concatenate([[0], np.cumsum(design.ncol_re)]).astype(int)
-        hess_plan = plan_coloring(design.re_blocks(), [
-            (np.arange(pg_off[k], pg_off[k + 1]), design.S_groups[k])
-            for k in range(len(design.ncol_re))
-        ])
 
     return ObjectiveBundle(
         joint_nllk=joint_nllk,
@@ -682,4 +710,5 @@ def build_objective(
         twin=lik.twin,
         loglik=loglik,
         mesh=mesh,
+        build_timer=timer,
     )

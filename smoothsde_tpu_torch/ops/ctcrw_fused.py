@@ -89,6 +89,7 @@ from smoothsde_tpu_torch.ops.kalman_soa import (
     _shift_back,
 )
 from smoothsde_tpu_torch.ops.stable import em1, phi, psi
+from smoothsde_tpu_torch.utils.misc import to_device
 
 # Steps per lane the geometry aims for. At 1M steps and d = 2 this gives
 # NB = 31,250 blocks, L = 32 and 62,500 lanes (one thread each, ~470 per
@@ -504,12 +505,13 @@ def _identity(vals, like):
 
 def _const(vals, like):
     """vals as a (k,) tensor of like's dtype and device: one host copy,
-    or fills on the device while a CUDA graph is being captured (a
-    capture refuses host copies; the Laplace layer captures the twin,
-    whose "blocked" scan pads and prefixes through here)."""
+    queued without a stop of the host (utils/misc.to_device), or fills on
+    the device while a CUDA graph is being captured (a capture refuses
+    host copies; the Laplace layer captures the twin, whose "blocked"
+    scan pads and prefixes through here)."""
     if like.is_cuda and torch.cuda.is_current_stream_capturing():
         return torch.stack(_identity(vals, like.new_empty(())))
-    return torch.tensor(vals, dtype=like.dtype, device=like.device)
+    return to_device(vals, like.dtype, like.device)
 
 
 # ---------------------------------------------------------------------------

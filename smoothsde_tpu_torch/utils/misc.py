@@ -2,7 +2,8 @@
 
 Port of smoothsde_tpu/utils/misc.py (NumPy only). The JAX package's
 device-transfer helpers have no counterpart: the port moves data with
-an explicit `device` and `dtype`.
+an explicit `device` and `dtype` (`to_device` for a fit's small
+uploads).
 """
 
 from __future__ import annotations
@@ -11,6 +12,17 @@ import warnings
 from typing import Dict, List
 
 import numpy as np
+import torch
+
+
+def to_device(a, dtype: torch.dtype, device) -> torch.Tensor:
+    """`a` (array-like) as a tensor of `dtype` on `device`: rounded on the
+    host, then copied without a stop. A blocking copy from pageable host
+    memory first waits for the device's stream to drain, a stop of the
+    host that reads nothing; this one is queued on the stream, and the
+    CUDA runtime stages the source before the call returns."""
+    t = torch.tensor(np.asarray(a, np.float64), dtype=dtype)
+    return t.to(device, non_blocking=True)
 
 
 def prec_to_cov(prec_mat: np.ndarray) -> np.ndarray:

@@ -8,6 +8,13 @@ the enclosed work, with the CUDA activities on a card, written to a
 directory as a Chrome trace (viewable in Perfetto or chrome://tracing).
 On a card a stage's time covers the device's work when the stage ends
 at a host read (every stage of infer/fit.py does).
+
+While a torch profiler records, each stage is also a
+`torch.profiler.record_function` range named "stage.<name>", so the
+stages share the device trace's clock and nest as they run; with the
+profiler off a stage costs one attribute read more than its clock.
+Code that records into a caller's timer takes it as an argument,
+`NO_TIMER` (records nothing) where the caller has none.
 """
 
 from __future__ import annotations
@@ -16,6 +23,12 @@ import contextlib
 import os
 import time
 from typing import Dict, Optional
+
+import torch
+import torch.autograd.profiler as _autograd_profiler
+
+# a reusable no-op block: the stage of no timer, the range of no profiler
+_NULL = contextlib.nullcontext()
 
 
 class StageTimer:
@@ -29,13 +42,27 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str):
+        # the profiler's own flag: a module attribute, set while it records
+        if _autograd_profiler._is_profiler_enabled:
+            span = torch.profiler.record_function("stage." + name)
+        else:
+            span = _NULL
         t0 = time.perf_counter()
-        yield
+        with span:
+            yield
         dt = time.perf_counter() - t0
         if name not in self.first:
             self.first[name] = dt
         self.total[name] = self.total.get(name, 0.0) + dt
         self.count[name] = self.count.get(name, 0) + 1
+
+    def merge(self, other: "StageTimer"):
+        """Add `other`'s stages to this timer's (a first call stays the
+        earlier timer's)."""
+        for name, total in other.total.items():
+            self.first.setdefault(name, other.first[name])
+            self.total[name] = self.total.get(name, 0.0) + total
+            self.count[name] = self.count.get(name, 0) + other.count[name]
 
     def summary(self) -> Dict[str, dict]:
         out = {}
@@ -55,6 +82,17 @@ class StageTimer:
         return out
 
 
+class _NoTimer:
+    """A timer that records nothing: the stages of a caller without a
+    StageTimer."""
+
+    def stage(self, name: str):
+        return _NULL
+
+
+NO_TIMER = _NoTimer()
+
+
 @contextlib.contextmanager
 def trace(log_dir: Optional[str]):
     """Capture a torch.profiler trace of the enclosed work into log_dir
@@ -64,7 +102,6 @@ def trace(log_dir: Optional[str]):
     if log_dir is None:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.cuda.is_available()

@@ -4,8 +4,10 @@ sdreport_mode on the port against the JAX package, in f64 on the CPU:
 - the two packages' StageTimers give equal summaries on one stage
   sequence under a fake clock;
 - the BM fit of tests/test_sde_api.py `test_timings_recorded` gives the
-  same `timings` stage names and schema in both packages; the device
-  optimizer's stages are JAX stage names;
+  same `timings` stage names and schema in both packages, besides the
+  port's own stages (`PORT_STAGES`: the build, the evaluation's
+  enqueue, the host reads), exactly those that its path records; the
+  device optimizer's stages are JAX stage names and those port stages;
 - `profile_dir` writes a torch.profiler trace (`trace` with None is a
   no-op);
 - sdreport_mode="device" (the FD points stacked, `fd_hessian`) agrees
@@ -27,12 +29,14 @@ import torch_threads  # noqa: F401  (one PyTorch thread a process)
 from smoothsde_tpu import SDE as JaxSDE
 from smoothsde_tpu.utils import profiling as jax_profiling
 from smoothsde_tpu_torch import SDE
+from smoothsde_tpu_torch.infer.fit import PORT_STAGES
 from smoothsde_tpu_torch.utils import profiling
 
 F64 = torch.float64
 STAGES = {"marginal_nllk_grad", "outer_hessian_fd", "joint_precision",
           "device_lbfgs", "device_polish"}
 FIELDS = {"calls", "first_s", "steady_s", "total_s"}
+BUILD = {"build.columns", "build.design", "build.params", "build.rows"}
 
 
 def _bm_data():
@@ -79,10 +83,16 @@ def test_timings_have_the_jax_schema():
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         jres = JaxSDE(data=_bm_data(), type="BM", response="z").fit()
-    assert set(res.timings) == set(jres.timings)
-    assert set(res.timings) <= STAGES
+    assert set(res.timings) - set(PORT_STAGES) == set(jres.timings)
+    assert set(jres.timings) <= STAGES
+    # the host loop's port stages: the build, each evaluation's enqueue,
+    # its reads of the device
+    assert set(res.timings) & set(PORT_STAGES) == BUILD | {
+        "eval.enqueue", "host_read"}
     for name, t in res.timings.items():
-        assert set(t) == FIELDS == set(jres.timings[name])
+        assert set(t) == FIELDS
+        if name in jres.timings:
+            assert set(t) == set(jres.timings[name])
     t = res.timings["marginal_nllk_grad"]
     assert t["calls"] >= 2 and t["first_s"] >= t["steady_s"] * 0.5
     assert res.timings["outer_hessian_fd"]["calls"] == 1
@@ -92,7 +102,14 @@ def test_device_optimizer_stages_are_jax_names():
     res = SDE(data=_re_data(), type="BM", response="z",
               formulas={"mu": "~s(ID, bs='re')", "sigma": "~1"},
               device="cpu", dtype=F64).fit(optimizer="device")
-    assert {"device_lbfgs", "joint_precision"} <= set(res.timings) <= STAGES
+    assert {"device_lbfgs", "joint_precision"} <= \
+        set(res.timings) - set(PORT_STAGES) <= STAGES
+    # the build, the flags' and the copy's reads, the polish's evaluations
+    # (no CUDA graph on the CPU: no capture)
+    assert set(res.timings) & set(PORT_STAGES) == BUILD | {
+        "eval.enqueue", "host_read"}
+    for t in res.timings.values():
+        assert set(t) == FIELDS
 
 
 def test_profile_dir_writes_a_trace(tmp_path):
