@@ -45,7 +45,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from smoothsde_tpu_torch.infer.laplace import make_laplace
+from smoothsde_tpu_torch.infer.laplace import Graphed, make_laplace
 from smoothsde_tpu_torch.utils.misc import prec_to_cov, to_device
 from smoothsde_tpu_torch.utils.profiling import NO_TIMER, StageTimer, trace
 
@@ -53,9 +53,11 @@ OPTIMIZERS = ("scipy", "device", "auto")
 SDREPORT_MODES = ("auto", "host", "device")
 # the stages the port records beside the JAX package's: the build
 # (SDE(...) and setup()), an evaluation's work up to its first read of
-# the device, each read of the device, and a CUDA graph's capture
+# the device, each read of the device, and a CUDA graph's capture and
+# each of its replays
 PORT_STAGES = ("build.columns", "build.design", "build.params",
-               "build.rows", "eval.enqueue", "host_read", "graph.capture")
+               "build.rows", "eval.enqueue", "host_read", "graph.capture",
+               "graph.replay")
 
 
 @dataclasses.dataclass
@@ -86,6 +88,10 @@ class FitResult:
     # each) and how they ran: "graph", "eager", or why not a graph
     device_steps: int = 0
     device_graph: Optional[str] = None
+    # how an evaluation without inner coefficients ran (the host loop's,
+    # the FD Hessian's): "graph" (replayed from the bundle's CUDA graph)
+    # or "eager (<why not>)"
+    eval_graph: Optional[str] = None
 
 
 def make_val_grad(bundle, timer=NO_TIMER):
@@ -96,7 +102,9 @@ def make_val_grad(bundle, timer=NO_TIMER):
     JAX package's f32 path does). Without inner coefficients the value
     is the joint nllk and bhat is empty. The Laplace marginal is made
     once per bundle (`bundle.marginal`), so every evaluation of the
-    bundle replays the same captured CUDA graphs. Each evaluation records
+    bundle replays the same captured CUDA graphs; so is, without inner
+    coefficients, its value and gradient (`bundle.value_grad`: one CUDA
+    graph on a card, `graph_refusal`). Each evaluation records
     in `timer` (a StageTimer) "eval.enqueue", the upload of x, the
     forward and the gradient, and a "host_read" around each read of the
     device: the value, the gradient and, with inner coefficients, bhat
@@ -109,20 +117,23 @@ def make_val_grad(bundle, timer=NO_TIMER):
             hess_plan=bundle.hess_plan,
             eager="collectives across processes"
             if _multi_process(bundle) else None)
+        bundle.value_grad = Graphed(_joint_value_grad(bundle),
+                                    graph_refusal(bundle))
     marginal = bundle.marginal
     b_init = packer.inner_init()
 
     def val_grad(x, b0=None):
         with timer.stage("eval.enqueue"):
-            xt = to_device(x, bundle.dtype, bundle.device).requires_grad_()
+            xt = to_device(x, bundle.dtype, bundle.device)
             if not packer.n_inner:  # the joint nllk: no inner tensors
-                v = bundle.joint_nllk(packer.unpack(xt))
+                v, g = bundle.value_grad(xt, timer=timer)
                 b = None
             else:
+                xt.requires_grad_()
                 bt = to_device(b_init if b0 is None else b0, bundle.dtype,
                                bundle.device)
                 v, b = marginal(xt, bt, timer)
-            (g,) = torch.autograd.grad(v, xt)
+                (g,) = torch.autograd.grad(v, xt)
         with timer.stage("host_read"):
             v = float(v.detach())
         with timer.stage("host_read"):
@@ -136,6 +147,41 @@ def make_val_grad(bundle, timer=NO_TIMER):
     return val_grad
 
 
+def _joint_value_grad(bundle):
+    """value_grad(x) -> (value, gradient) of the joint nllk at the outer
+    tensor x, for a bundle without inner coefficients. It refers to the
+    bundle's likelihood and packer, not to the bundle, which holds it."""
+    joint, packer = bundle.joint_nllk, bundle.packer
+
+    def value_grad(x):
+        with torch.enable_grad():
+            xg = x.detach().requires_grad_(True)
+            v = joint(packer.unpack(xg))
+            (g,) = torch.autograd.grad(v, xg)
+        return v.detach(), g
+
+    return value_grad
+
+
+def graph_refusal(bundle) -> Optional[str]:
+    """Why the bundle's value and gradient (`make_val_grad`'s
+    `bundle.value_grad`) may not be replayed from a CUDA graph, or None:
+    inner coefficients (the inner Newton reads the device), a model off
+    the card, or `_eager_reason`'s mesh. A capture that the stream
+    refuses stays eager too (laplace.Graphed)."""
+    if bundle.packer.n_inner:
+        return "inner coefficients"
+    if bundle.device.type != "cuda":
+        return f"{bundle.device.type} device"
+    return _eager_reason(bundle)
+
+
+def _eval_graph(bundle) -> Optional[str]:
+    """FitResult.eval_graph: how the bundle's evaluations ran; None where
+    its `value_grad` has not run on the card yet."""
+    return next(iter(bundle.value_grad.status.values()), None)
+
+
 def _multi_process(bundle) -> bool:
     """The bundle's likelihood is summed across processes (a ("dcn",
     axis) mesh)."""
@@ -144,9 +190,10 @@ def _multi_process(bundle) -> bool:
 
 
 def _eager_reason(bundle) -> Optional[str]:
-    """Why `device_lbfgs` may not capture its step as a CUDA graph on this
-    bundle, or None: collectives across the processes of a ("dcn", axis)
-    mesh, or a mesh over more than one card."""
+    """Why `device_lbfgs` may not capture its step, nor `make_val_grad`
+    an evaluation, as a CUDA graph on this bundle, or None: collectives
+    across the processes of a ("dcn", axis) mesh, or a mesh over more
+    than one card."""
     mesh = getattr(bundle, "mesh", None)
     if mesh is None:
         return None
@@ -369,6 +416,7 @@ def fit_model(
     if compute_sdreport:
         _sdreport(out, bundle, val_grad, fd_step, timer, sdreport_mode)
     out.counts["evals"] = n_evals
+    out.eval_graph = _eval_graph(bundle)
     out.timings = timer.summary()
     return out
 
@@ -391,9 +439,14 @@ def fd_hessian(grad_at, x, fd_step):
     return torch.where(bad, H2, H1)
 
 
-def _marginal_grad(marginal, b):
+def _marginal_grad(bundle, b, timer):
     """grad_at(xp): the marginal's gradient at xp, its inner solve from
-    b."""
+    b; without inner coefficients `bundle.value_grad`'s, a replay of its
+    CUDA graph where it has one."""
+    if not bundle.packer.n_inner:
+        return lambda xp: bundle.value_grad(xp, timer=timer)[1]
+    marginal = functools.partial(bundle.marginal, timer=timer)
+
     def grad_at(xp):
         with torch.enable_grad():
             xg = xp.detach().requires_grad_(True)
@@ -457,7 +510,7 @@ def _fit_device(bundle, val_grad, maxiter, compute_sdreport, fd_step,
         fuse_fd = compute_sdreport and n_out > 0
         H_fd = torch.zeros(0, dtype=dtype, device=device)
         if fuse_fd:
-            H_fd = fd_hessian(_marginal_grad(marginal, r.b), r.x,
+            H_fd = fd_hessian(_marginal_grad(bundle, r.b, timer), r.x,
                               fd_step).reshape(-1)
         # everything the host needs, in one copy
         n_in = r.b.shape[0]
@@ -516,6 +569,7 @@ def _fit_device(bundle, val_grad, maxiter, compute_sdreport, fd_step,
         _sdreport(out, bundle, val_grad, fd_step, timer, sdreport_mode,
                   H_precomputed=H)
     out.counts["evals"] += host_evals() - evals0
+    out.eval_graph = _eval_graph(bundle)
     out.timings = timer.summary()
     return out
 
@@ -598,8 +652,7 @@ def _fd_device(bundle, x_hat, b_hat, fd_step, timer):
     def tensor(a):
         return to_device(a, bundle.dtype, bundle.device)
 
-    grad_at = _marginal_grad(
-        functools.partial(bundle.marginal, timer=timer), tensor(b_hat))
+    grad_at = _marginal_grad(bundle, tensor(b_hat), timer)
     H = fd_hessian(grad_at, tensor(x_hat), fd_step)
     with timer.stage("host_read"):
         return H.to("cpu", torch.float64).numpy()

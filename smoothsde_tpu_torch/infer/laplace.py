@@ -46,7 +46,7 @@ reproduces the eager result exactly; otherwise the function stays eager.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch.func import grad, grad_and_value, jacfwd, vmap
@@ -74,13 +74,46 @@ def _solve(A, B):
     return torch.where(info == 0, X, math.nan)
 
 
-def _equal(a, b, timer) -> bool:
-    """torch.equal, a "host_read" stage of `timer` where it reads the
-    device (an empty tensor reads nothing)."""
-    if not a.numel():
-        return torch.equal(a, b)
-    with timer.stage("host_read"):
-        return torch.equal(a, b)
+# the integer type of each float width: == on a float's bits
+_INT_OF_WIDTH = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _bits(t):
+    """t as integers of its width where it is a float: == on them is
+    equality bit for bit (NaN equals NaN, -0 differs from 0)."""
+    return t.view(_INT_OF_WIDTH[t.element_size()]) \
+        if t.is_floating_point() else t
+
+
+# one capture stream per card, made at its first capture
+_CAPTURE_STREAMS = {}
+# the last graph captured on each card. Every capture there shares its
+# memory pool, which so outlives the Graphed objects that die with their
+# bundles: a new capture takes the blocks their graphs freed, not new
+# device memory. Sharing is sound here because a graph reads only its
+# inputs, copied in before each replay, and what it wrote earlier in the
+# same replay, and its outputs are copied out right after it.
+_LAST_GRAPHS = {}
+# graphs whose capture the stream refused. The allocators keep a filter
+# that refers to each (torch does not undo a capture that failed), so
+# each is kept alive, and its pool is shared no more.
+_REFUSED = []
+
+
+def _capture_stream(device):
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device]
+
+
+class _Entry(NamedTuple):
+    """A captured signature: the graph, the tensors it reads and writes,
+    and the kernel launches (ops/ctcrw_fused.LAUNCHES) one replay runs."""
+
+    graph: object  # torch.cuda.CUDAGraph
+    static_in: list
+    static_out: object
+    launches: dict
 
 
 class Graphed:
@@ -94,8 +127,18 @@ class Graphed:
     `eager`: a reason to run fn as it is, never captured (fn exchanges
     data with other processes, which a replay cannot). A call's `timer`
     (a StageTimer) records each capture (the warm-up run, the capture,
-    the replay check) as a "graph.capture" stage, and the replay check's
-    reads as "host_read" stages."""
+    the replay check) as a "graph.capture" stage, the check's one read
+    as a "host_read" stage, and each replay as a "graph.replay" stage.
+    A replay adds the kernel launches that its capture recorded to
+    ops/ctcrw_fused.LAUNCHES, which so counts the kernels that ran.
+
+    The capture is bare: no garbage collection, no release of the
+    allocator's cache and no wait for the whole device before it (what
+    torch.cuda.graph adds), only its stream ordered after the caller's.
+    Its memory comes from a pool that every capture on the card shares
+    (`_record`). The graph and the pool's blocks that it holds are freed
+    with the Graphed, by reference counting, so `fn` must not refer to
+    what holds the Graphed."""
 
     def __init__(self, fn, eager: Optional[str] = None):
         self.fn = fn
@@ -113,36 +156,85 @@ class Graphed:
         entry = self.entries[key]
         if entry is None:
             return self.fn(*args)
-        graph, static_in, static_out = entry
-        for s, a in zip(static_in, args):
-            s.copy_(a)
-        graph.replay()
-        return tuple(o.clone() for o in static_out) if isinstance(
-            static_out, tuple) else static_out.clone()
+        with timer.stage("graph.replay"):
+            for s, a in zip(entry.static_in, args):
+                s.copy_(a)
+            _replay(entry)
+            out = entry.static_out
+            return tuple(o.clone() for o in out) if isinstance(
+                out, tuple) else out.clone()
 
     def _capture(self, args, timer):
+        device = args[0].device
         static_in = [a.detach().clone() for a in args]
-        side = torch.cuda.Stream(args[0].device)
-        side.wait_stream(torch.cuda.current_stream(args[0].device))
-        with torch.cuda.stream(side):
+        stream = _capture_stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
             want = self.fn(*static_in)  # warm-up outside the capture
-        torch.cuda.current_stream(args[0].device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph):
-                static_out = self.fn(*static_in)
-        except torch.OutOfMemoryError:
-            raise
-        except RuntimeError as err:  # the stream refused the capture
-            self.status[str(args[0].dtype)] = f"eager ({err})"[:200]
+            try:
+                entry = _record(self.fn, static_in)
+            except torch.OutOfMemoryError:
+                raise
+            except RuntimeError as err:  # the stream refused the capture
+                entry = None
+                self.status[str(args[0].dtype)] = f"eager ({err})"[:200]
+        torch.cuda.current_stream(device).wait_stream(stream)
+        if entry is None:
             return None
-        graph.replay()
-        outs = static_out if isinstance(static_out, tuple) else (static_out,)
-        wants = want if isinstance(want, tuple) else (want,)
-        same = all(_equal(o, w, timer) for o, w in zip(outs, wants))
+        _replay(entry)
+        outs, wants = (o if isinstance(o, tuple) else (o,)
+                       for o in (entry.static_out, want))
+        same = all(o.shape == w.shape and o.dtype == w.dtype
+                   for o, w in zip(outs, wants))
+        if same:  # every output's bits against the warm-up's, one read
+            flag = torch.stack([(_bits(o) == _bits(w)).all()
+                                for o, w in zip(outs, wants)]).all()
+            with timer.stage("host_read"):
+                same = bool(flag)
         self.status[str(args[0].dtype)] = "graph" if same else \
             "eager (replay differs)"
-        return (graph, static_in, static_out) if same else None
+        return entry if same else None
+
+
+def _record(fn, static_in) -> _Entry:
+    """fn(*static_in) captured on the current stream into a new graph, in
+    the card's shared pool (`_LAST_GRAPHS`). The kernel launches counted
+    while capturing did not run: they are taken off LAUNCHES again and
+    kept for the replays."""
+    from smoothsde_tpu_torch.ops.ctcrw_fused import LAUNCHES
+
+    device = static_in[0].device
+    last = _LAST_GRAPHS.get(device)
+    pool = torch.cuda.graph_pool_handle() if last is None else last.pool()
+    graph = torch.cuda.CUDAGraph()
+    before = dict(LAUNCHES)
+    graph.capture_begin(pool=pool)
+    try:
+        static_out = fn(*static_in)
+    finally:
+        try:
+            graph.capture_end()
+        except RuntimeError:  # refused: later captures take a new pool
+            _REFUSED.append(graph)
+            _LAST_GRAPHS.pop(device, None)
+            end = getattr(torch._C, "_cuda_endAllocateToPool", None)
+            if end is not None:  # the device allocator's filter
+                end(device.index, pool)
+            raise
+        finally:
+            launches = {k: v - before[k] for k, v in LAUNCHES.items()
+                        if v != before[k]}
+            LAUNCHES.update(before)
+    _LAST_GRAPHS[device] = graph
+    return _Entry(graph, static_in, static_out, launches)
+
+
+def _replay(entry: _Entry):
+    from smoothsde_tpu_torch.ops.ctcrw_fused import LAUNCHES
+
+    entry.graph.replay()
+    for name, n in entry.launches.items():
+        LAUNCHES[name] += n
 
 
 def make_laplace(joint_nllk: Callable, packer,

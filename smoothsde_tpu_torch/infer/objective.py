@@ -201,6 +201,10 @@ class ObjectiveBundle:
     # state-space only
     twin: str = ""
     marginal: Optional[Callable] = None  # the Laplace marginal, made once
+    # the joint nllk's value and gradient at an outer vector, without
+    # inner coefficients a CUDA graph on a card (infer/fit.py
+    # make_val_grad makes it beside `marginal`)
+    value_grad: Optional[Callable] = None
     # the unpenalized log-likelihood on the value route (`kalman_impl`)
     loglik: Optional[Callable] = None
     # the mesh of a sharded likelihood (parallel/batching.Mesh), or None

@@ -74,10 +74,10 @@ def profiled(fn, torch):
 class _Eager:
     """A stand-in for `laplace.Graphed` that calls fn as it is."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, eager=None):
         self.fn, self.status = fn, {"eager": "eager"}
 
-    def __call__(self, *args):
+    def __call__(self, *args, timer=None):
         return self.fn(*args)
 
 

@@ -12,7 +12,8 @@
 - on a card (`gpu`), every call that torch reports as synchronizing
   inside `fit()` is one "host_read" (OU_SSM, CTCRW in f64 and f32, BM
   with a random effect), and each CUDA graph's capture a
-  "graph.capture".
+  "graph.capture": the evaluation's once a bundle without inner
+  coefficients, the device optimizer's step once a fit.
 
 This file imports neither jax nor the JAX package, so it also runs where
 jax is not installed:
@@ -255,13 +256,19 @@ def test_every_sync_in_a_fit_is_a_host_read(model, optimizer):
     res, sites = _counted_fit(sde, optimizer)
     assert sum(sites.values()) == res.timings["host_read"]["calls"], sites
     if model == "bm_re":
-        # the Laplace layer's graphs, captured in this bundle's first fit
+        # the Laplace layer's graphs, captured in this bundle's first fit;
+        # no graph of the evaluation
         assert res.timings["graph.capture"]["calls"] >= 1
+        assert res.eval_graph == "eager (inner coefficients)"
         if optimizer == "device":
             assert res.device_graph == "eager"
     elif optimizer == "device":
-        # the device optimizer's step, captured once a fit
-        assert res.timings["graph.capture"]["calls"] == 1
+        # the device optimizer's step, captured once a fit, and the
+        # evaluation that the FD Hessian replays, once a bundle
+        assert res.timings["graph.capture"]["calls"] == 2
         assert res.device_graph == "graph"
+        assert res.eval_graph == "graph"
     else:
-        assert "graph.capture" not in res.timings
+        # the evaluation, captured once a bundle
+        assert res.timings["graph.capture"]["calls"] == 1
+        assert res.eval_graph == "graph"
